@@ -1,0 +1,65 @@
+"""Scene: SDF + BSDF + emitter + camera rig.
+
+Counterpart of the JAX package's ``models/scene.py``: the SDF is a
+first-class scene member, the BSDF attached to it is explicit, and the
+differentiable parameters are the tensors of the members.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from .. import resolve_device, same_device
+from ..ops.sdf import GridSDF
+from .bsdf import DiffuseBSDF
+from .camera import PerspectiveCamera, regular_cameras
+from .emitter import ConstantEmitter
+
+__all__ = ["Scene"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    sdf: GridSDF
+    bsdf: DiffuseBSDF
+    emitter: Any
+    cameras: PerspectiveCamera
+    # Auxiliary triangle mesh and finite-position area emitter of the JAX
+    # package's mixed scenes: fields kept, not implemented here (must be None).
+    mesh: Any = None
+    area_emitter: Any = None
+
+    def __post_init__(self):
+        if self.mesh is not None or self.area_emitter is not None:
+            raise NotImplementedError("mesh and area-emitter scenes are not ported")
+
+    @classmethod
+    def create(cls, sdf_data, bsdf=None, emitter=None, cameras=None, n_views=12, res=128,
+               mesh=None, area_emitter=None, device=None):
+        device = resolve_device(device)
+        sdf = sdf_data if isinstance(sdf_data, GridSDF) else GridSDF.create(sdf_data, device=device)
+        return cls(
+            sdf=sdf,
+            bsdf=bsdf if bsdf is not None else DiffuseBSDF.create(device=device),
+            emitter=emitter if emitter is not None else ConstantEmitter.create(device=device),
+            cameras=cameras if cameras is not None else regular_cameras(n_views, resx=res, resy=res, device=device),
+            mesh=mesh,
+            area_emitter=area_emitter,
+        )
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def device(self):
+        return self.sdf.data.device
+
+    def require_device(self, device):
+        """Raise unless the scene's grid lies on ``device``."""
+        if not same_device(self.device, device):
+            raise ValueError(f"scene lies on {self.device}, but device={device} was asked for")
+
+    @property
+    def n_views(self):
+        return self.cameras.origin.shape[0]
