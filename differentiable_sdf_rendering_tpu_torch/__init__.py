@@ -9,8 +9,10 @@ numeric reference) and mirrors its layout, so the counterpart of
                film splatting, sampling
   models/    — cameras, BSDF, emitters, scene, integrator
   opt/       — variables, losses, regularizer, Adam, configs, the training loop
-  utils/     — numpy <-> port state conversion
-  csrc/      — hand-written CUDA sources (built at first use by kernels.py)
+  utils/     — numpy <-> port state conversion, .vol / PNG / metadata I/O,
+               turntable renders
+  csrc/      — hand-written CUDA sources (built at first use by kernels.py):
+               redistancing, sphere tracing, detached grid evaluation
 
 Plain tensor code runs eagerly; there is no ``jit``.  Every entry point takes
 an explicit ``device``: ``None`` means the CUDA card and raises when there is

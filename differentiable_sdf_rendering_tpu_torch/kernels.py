@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>.so`` next to this file, at
 first use, then loaded with ``ctypes``.  A library is rebuilt when its source
-is newer.  No PyTorch header is included, so a build takes seconds.  Nothing
-here runs at import: a host without ``nvcc`` can import every module of the
-package.  A failing build or a missing compiler raises — there is no
+or a header under ``csrc/`` is newer.  No PyTorch header is included, so a
+build takes seconds.  Nothing here runs at import: a host without ``nvcc`` can
+import every module of the package.  A failing build or a missing compiler raises — there is no
 fallback to the plain PyTorch versions.
 
 Pointers are passed as ``tensor.data_ptr()`` and the stream as
@@ -26,8 +26,8 @@ __all__ = ["SOURCES", "build_dir", "library", "build_all", "NVCC_FLAGS"]
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 
-# -fmad=false: the redistancing kernel must round like its plain PyTorch
-# version (no FMA contraction); see csrc/redistance.cu.
+# -fmad=false: the kernels round like their plain PyTorch versions (no FMA
+# contraction); see csrc/redistance.cu and csrc/tricubic.cuh.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -35,11 +35,22 @@ NVCC_FLAGS = (
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+_FLOAT = ctypes.c_float
 
 # name → {C function: (restype, argtypes)}
 SOURCES = {
     "redistance": {
         "redistance_run": (_INT, [_VOIDP] * 6 + [_INT, _INT, _VOIDP, ctypes.POINTER(_INT)]),
+    },
+    "sphere_trace": {
+        "sphere_trace_run": (
+            _INT,
+            [_VOIDP, _INT, _INT, _INT] + [_VOIDP] * 8 + [_FLOAT, _INT, _INT] + [_VOIDP] * 2 + [_I64, _VOIDP],
+        ),
+    },
+    "grid_eval": {
+        "grid_eval_grad_run": (_INT, [_VOIDP, _INT, _INT, _INT] + [_VOIDP] * 4 + [_I64, _VOIDP]),
     },
 }
 
@@ -63,29 +74,50 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(f) for f in [src, *headers])
 
 
-def _build(name: str, extra_flags=()) -> str:
-    """Compile ``csrc/<name>.cu`` into its library; returns the compiler's output."""
+def _start_build(name: str, extra_flags=()):
+    """Start ``nvcc`` on ``csrc/<name>.cu``; returns ``(process, command, tmp, lib)``."""
     src, lib = _paths(name)
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, cmd, tmp, lib
+
+
+def _finish_build(proc, cmd, tmp, lib) -> str:
+    """Wait for one ``nvcc`` run, install its library; returns its output."""
+    out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)
-    return proc.stdout
+    return out
+
+
+def _build(name: str, extra_flags=()) -> str:
+    """Compile ``csrc/<name>.cu`` into its library; returns the compiler's output."""
+    return _finish_build(*_start_build(name, extra_flags))
 
 
 def build_all(verbose_ptxas: bool = False) -> dict:
-    """Build every stale kernel library, one ``nvcc`` run per source.
-    Returns ``{"seconds": float, "built": [names], "log": str}``."""
+    """Build every stale kernel library: one ``nvcc`` run per source, all
+    started together.  Returns ``{"seconds": float, "built": [names], "log": str}``."""
     t0 = time.perf_counter()
     extra = ("-Xptxas", "-v") if verbose_ptxas else ()
     built = [name for name in SOURCES if _stale(name)]
-    log = "".join(_build(name, extra) for name in built)
+    runs = [_start_build(name, extra) for name in built]
+    try:
+        log = "".join(_finish_build(*run) for run in runs)
+    finally:
+        for proc, *_ in runs:  # after a failure, stop the compilers still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return {"seconds": time.perf_counter() - t0, "built": built, "log": log}
 
 

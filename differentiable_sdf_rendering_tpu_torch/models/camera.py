@@ -1,4 +1,5 @@
-"""Perspective cameras and the reference's regular multi-view rigs.
+"""Perspective cameras, the reference's regular multi-view rigs and the
+turntable rig.
 
 Counterpart of the JAX package's ``models/camera.py``: fov 39°, look-at
 (0.5, 0.5, 0.5), radius-2 ring with sin-wobbled elevation.  A rig is one
@@ -22,6 +23,7 @@ __all__ = [
     "look_at",
     "regular_cameras",
     "regular_cameras_top",
+    "turntable_cameras",
 ]
 
 
@@ -148,3 +150,20 @@ def regular_cameras(
 def regular_cameras_top(n_sensors, angle_shift=0.0, resx=128, resy=128, radius=2.0, device=None):
     """Top-view variant."""
     return regular_cameras(n_sensors, angle_shift, resx, resy, radius, height_scale=1.3, device=device)
+
+
+def turntable_cameras(n_frames: int, resx=128, resy=128, radius=1.5, height=0.8, device=None):
+    """Turntable rig for videos: ``n_frames`` cameras on a ring of radius
+    1.5 at height 0.8 around (0.5, 0.5, 0.5), fov 39°.  ``device=None``
+    means the card (raises when there is none)."""
+    f32 = np.float32
+    angles = np.arange(n_frames).astype(f32) / f32(n_frames) * f32(2.0) * f32(np.pi)
+    origins = np.stack(
+        [
+            np.cos(angles) * f32(radius) + f32(0.5),
+            np.full((n_frames,), height, f32),
+            np.sin(angles) * f32(radius) + f32(0.5),
+        ],
+        axis=-1,
+    ).astype(f32)
+    return _camera_from_origins(origins, resx, resy, device=device)

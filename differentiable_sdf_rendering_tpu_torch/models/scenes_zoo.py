@@ -17,7 +17,7 @@ from ..ops.redistance import redistance
 from .bsdf import DiffuseBSDF
 from .emitter import make_gradient_envmap
 
-__all__ = ["target_sdf", "scene_rig_full", "SCENE_NAMES"]
+__all__ = ["target_sdf", "scene_rig_full", "scene_rig", "SCENE_NAMES"]
 
 
 def _vec(v, like):
@@ -173,3 +173,8 @@ def scene_rig_full(scene_name: str, param_keys=("sdf",), device=None):
         "mesh": None,
     }
 
+
+def scene_rig(scene_name: str, param_keys=("sdf",), device=None):
+    """Per-scene ``(bsdf, emitter)``: the 2-tuple view of :func:`scene_rig_full`."""
+    rig = scene_rig_full(scene_name, param_keys, device=device)
+    return rig["bsdf"], rig["emitter"]

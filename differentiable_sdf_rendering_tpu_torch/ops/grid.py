@@ -8,6 +8,11 @@ backward pass w.r.t. the grid is autograd's scatter-add of the gather
 card).  The JAX package's stencil tables and matmul jet are TPU layout
 devices and have no counterpart here.
 
+:func:`grid_eval_grad_detached` is the wrapper of the hand-written CUDA
+kernel ``csrc/grid_eval.cu`` (value and gradient without a graph): a CUDA
+tensor goes through the kernel (or the call raises), a CPU tensor through
+its plain version :func:`grid_eval_grad_detached_plain`.
+
 Conventions (matching the reference / Mitsuba):
   * grid ``data`` has shape (Z, Y, X); a point ``p = (x, y, z)`` in the unit
     cube indexes ``data[z, y, x]``.
@@ -19,12 +24,16 @@ Conventions (matching the reference / Mitsuba):
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 __all__ = [
     "bspline_weights",
     "grid_eval",
     "grid_eval_grad",
+    "grid_eval_grad_detached",
+    "grid_eval_grad_detached_plain",
     "grid_eval_all",
     "grid_eval_trilinear",
 ]
@@ -145,6 +154,61 @@ def grid_eval_grad(data, p):
     )
     grad = torch.stack([gx * res[0], gy * res[1], gz * res[2]], dim=-1)
     return value, grad
+
+
+@torch.no_grad()
+def grid_eval_grad_detached_plain(data, x, origin):
+    """Plain PyTorch version of the grid-evaluation kernel: value and
+    gradient at ``x - origin``, without a graph."""
+    return grid_eval_grad(data.detach(), x.detach() - origin.detach())
+
+
+def _grid_eval_grad_kernel(data, x, origin):
+    """Launch ``csrc/grid_eval.cu::grid_eval_grad_run`` on the current stream."""
+    from .. import kernels
+
+    data, x, origin = data.detach(), x.detach(), origin.detach()
+    if data.ndim != 3 or not data.is_contiguous():
+        raise ValueError(f"the CUDA grid evaluation takes a contiguous (Z, Y, X) grid, got {tuple(data.shape)}")
+    if not (data.dtype == x.dtype == origin.dtype == torch.float32):
+        raise ValueError("the CUDA grid evaluation takes float32 grid, points and origin")
+    if not (data.device == x.device == origin.device):
+        raise ValueError("grid, points and origin must lie on one device")
+    if x.shape[-1] != 3 or origin.shape != (3,):
+        raise ValueError(f"points (..., 3) and origin (3,) expected, got {tuple(x.shape)} and {tuple(origin.shape)}")
+    lead = x.shape[:-1]
+    pts = x.reshape(-1, 3).contiguous()
+    origin = origin.contiguous()
+    n = pts.shape[0]
+    value = torch.empty(n, dtype=torch.float32, device=x.device)
+    grad = torch.empty(n, 3, dtype=torch.float32, device=x.device)
+    zres, yres, xres = data.shape
+    with torch.cuda.device(x.device):
+        err = kernels.library("grid_eval").grid_eval_grad_run(
+            data.data_ptr(), xres, yres, zres, origin.data_ptr(), pts.data_ptr(),
+            value.data_ptr(), grad.data_ptr(), n, torch.cuda.current_stream().cuda_stream,
+        )
+    grid_eval_grad_detached.kernel_launches += 1
+    if err != 0:
+        raise RuntimeError(f"grid_eval_grad_run: CUDA error {err} at launch")
+    return value.reshape(lead), grad.reshape(lead + (3,))
+
+
+def grid_eval_grad_detached(data, x, origin):
+    """Value and spatial gradient at ``x - origin`` without a graph →
+    ``(value (...,), grad (..., 3))``; the same function as
+    :func:`grid_eval_grad` of ``x - origin``.
+
+    On a CUDA tensor it runs in ``csrc/grid_eval.cu``; on a CPU tensor in
+    :func:`grid_eval_grad_detached_plain`.
+    ``grid_eval_grad_detached.kernel_launches`` counts the kernel's launches.
+    """
+    if x.is_cuda:
+        return _grid_eval_grad_kernel(data, x, origin)
+    return grid_eval_grad_detached_plain(data, x, origin)
+
+
+grid_eval_grad_detached.kernel_launches = 0
 
 
 def grid_eval_all(data, p):

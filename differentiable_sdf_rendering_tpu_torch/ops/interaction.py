@@ -6,7 +6,10 @@ distance is re-attached through the implicit-function theorem,
     t_attached = replace_grad(t, f(p) / detach(⟨∇f, −d⟩)),
 
 the shading normal is the attached normalized SDF gradient, and a shading
-frame is built with the branchless Duff et al. orthonormal basis.
+frame is built with the branchless Duff et al. orthonormal basis.  Without
+``differentiable`` and with autograd off (the primal render), the normal
+comes from the detached grid evaluation (the CUDA kernel
+``csrc/grid_eval.cu`` on the card).
 """
 
 from __future__ import annotations
@@ -75,7 +78,10 @@ def compute_surface_interaction(sdf, o, d, its_t, differentiable: bool = True):
         t_att = t_safe
 
     p = o + t_att[..., None] * d
-    n = normalize(sdf.eval_grad(p))
+    if differentiable or torch.is_grad_enabled():
+        n = normalize(sdf.eval_grad(p))
+    else:
+        n = normalize(sdf.eval_grad_detached(p))
     s, b = coordinate_frame(n.detach())
     si = SurfaceInteraction(
         valid=valid,

@@ -103,6 +103,11 @@ class GridSDF:
     def eval_grad(self, x):
         return gridops.grid_eval_grad(self.data, x - self.p)[1]
 
+    def eval_grad_detached(self, x):
+        """Gradient without a graph (the CUDA kernel of
+        ``ops/grid.grid_eval_grad_detached`` on the card)."""
+        return gridops.grid_eval_grad_detached(self.data, x, self.p)[1]
+
     def eval_all(self, x):
         """(value, grad, hessian) jet."""
         return gridops.grid_eval_all(self.data, x - self.p)

@@ -3,7 +3,10 @@
 Counterpart of the JAX package's ``ops/trace.py``.  Two entry points:
 
 * ``sphere_trace``      — plain intersection (primal rendering fast path),
-  including the 10-step decreasing-rate refinement.
+  including the 10-step decreasing-rate refinement.  It is the wrapper of
+  the hand-written CUDA kernel ``csrc/sphere_trace.cu``: a CUDA tensor goes
+  through the kernel (or the call raises), a CPU tensor through the kernel's
+  plain version :func:`sphere_trace_plain`.
 * ``sphere_trace_warp`` — intersection + the paper's weighted warp-field
   accumulators computed *during* the trace: the weighted mean depth
   ``warp_t = Σ w·t·Δ / Σ w·Δ`` (trapezoid rule over trace segments), its
@@ -17,27 +20,29 @@ bounding-box down-weighting, and an analytic spatial weight gradient that
 uses the SDF Hessian.  Derivatives w.r.t. the ray direction are converted
 from spatial gradients via ``∇_d g = t·∇_x g + (d·∇_x g)·t_d``.
 
-Loop mechanics: trip counts are heavily skewed (a few grazing lanes run to
-``max_steps`` while most finish in a handful of steps), so each loop is a
-Python ``while`` over a working set of lanes that is re-compacted to the
-still-active lanes whenever at most half of it remains active.  Every body
+Loop mechanics of the plain versions: trip counts are heavily skewed (a few
+grazing lanes run to ``max_steps`` while most finish in a handful of steps),
+so each loop is a Python ``while`` over a working set of lanes that is
+re-compacted to the still-active lanes whenever at most half of it remains
+active.  Every body
 update is masked by ``active``, so compaction is pure lane reordering: a
 lane's values do not depend on which other lanes share its batch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
 import torch
 
-from .sdf import TraceParams
+from .sdf import GridSDF, TraceParams
 from .vecmath import (
     bbox_distance_inside_d, dot, integer_pow, nearest_axis_mask, normalize, ray_bbox_intersect,
 )
 
-__all__ = ["TraceResult", "sphere_trace", "sphere_trace_warp"]
+__all__ = ["TraceResult", "sphere_trace", "sphere_trace_plain", "sphere_trace_warp"]
 
 _INF = math.inf
 # Below this many lanes a working set is no longer re-compacted.
@@ -126,16 +131,115 @@ def _lane_tensor(v, like, dtype):
     return torch.as_tensor(v, dtype=dtype, device=like.device).expand(like.shape[:-1])
 
 
+def _check_trace_params(params: TraceParams):
+    if params.over_relax != 1.0:
+        raise NotImplementedError("over-relaxed sphere tracing (over_relax > 1) is not ported")
+    if params.refine_intersection and params.refine != "fixed":
+        raise NotImplementedError(f"refine='{params.refine}' is not ported (only 'fixed')")
+
+
 @torch.no_grad()
 def sphere_trace(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF, active=True,
                  refine_active=True):
     """Non-differential sphere trace → intersection distance (N,), inf = miss.
 
-    ``refine_active`` masks the refinement per lane (False = occlusion-only
-    lanes whose ``isfinite`` bit is invariant under refinement).
+    ``maxt``, ``active`` and ``refine_active`` are scalars or per-lane
+    tensors; ``refine_active`` masks the refinement per lane (False =
+    occlusion-only lanes whose ``isfinite`` bit is invariant under
+    refinement).
+
+    On a CUDA tensor the trace runs in ``csrc/sphere_trace.cu`` (a grid SDF
+    only: anything else raises ``NotImplementedError``); on a CPU tensor in
+    :func:`sphere_trace_plain`.  ``sphere_trace.kernel_launches`` counts the
+    kernel's launches.
     """
-    if params.over_relax != 1.0:
-        raise NotImplementedError("over-relaxed sphere tracing (over_relax > 1) is not ported")
+    if o.is_cuda:
+        return _sphere_trace_kernel(sdf, o, d, params, maxt, active, refine_active)[0]
+    return sphere_trace_plain(sdf, o, d, params, maxt, active, refine_active)
+
+
+sphere_trace.kernel_launches = 0
+
+
+def _sphere_trace_kernel(sdf, o, d, params: TraceParams, maxt=_INF, active=True, refine_active=True):
+    """Ray setup, then the kernel.  Returns ``(its_t, num_steps)``: the
+    intersection distance and, per lane, the grid evaluations of the trace
+    loop and the refinement together."""
+    lanes, lead = _kernel_lanes(sdf, o, d, params, maxt, active, refine_active)
+    out = _launch_sphere_trace(sdf.data.detach(), sdf.p.detach(), lanes, params)
+    return tuple(x.reshape(lead) for x in out)
+
+
+def _kernel_lanes(sdf, o, d, params: TraceParams, maxt=_INF, active=True, refine_active=True):
+    """The kernel's operands: the ray setup of :func:`_ray_setup` as flat,
+    contiguous per-lane tensors (the kernel indexes lane i directly).
+    Returns ``(lanes, leading shape)``."""
+    _check_trace_params(params)
+    if not isinstance(sdf, GridSDF):
+        raise NotImplementedError(f"the CUDA sphere tracer takes a GridSDF, got {type(sdf).__name__}")
+    o = o.detach()
+    d = d.detach()
+    maxt = _lane_tensor(maxt, o, o.dtype)
+    d, _, hit, _, t0, maxt, trace_eps = _ray_setup(sdf, o, d, params, maxt)
+    lead = d.shape[:-1]
+    lanes = {
+        "o": o.expand(d.shape).reshape(-1, 3).contiguous(),
+        "d": d.reshape(-1, 3).contiguous(),
+        "t0": t0.expand(lead).reshape(-1).contiguous(),
+        "maxt": maxt.expand(lead).reshape(-1).contiguous(),
+        "trace_eps": trace_eps.expand(lead).reshape(-1).contiguous(),
+        "active": (_lane_tensor(active, d, torch.bool) & hit).reshape(-1).to(torch.uint8).contiguous(),
+        "refine_active": _lane_tensor(refine_active, d, torch.bool).reshape(-1).to(torch.uint8).contiguous(),
+    }
+    return lanes, lead
+
+
+def _launch_sphere_trace(data, origin, lanes: dict, params: TraceParams):
+    """Launch ``csrc/sphere_trace.cu::sphere_trace_run`` on the current
+    stream over the flat per-lane operands ``lanes`` of :func:`_kernel_lanes`.
+    Returns flat ``(its_t, num_steps)``."""
+    from .. import kernels
+
+    if data.ndim != 3 or data.dtype != torch.float32 or not data.is_contiguous():
+        raise ValueError(f"the CUDA sphere tracer takes a contiguous (Z, Y, X) float32 grid, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    if origin.shape != (3,) or origin.dtype != torch.float32:
+        raise ValueError(f"the grid origin must be (3,) float32, got {tuple(origin.shape)} {origin.dtype}")
+    n = lanes["t0"].shape[0]
+    for key, dtype, shape in (("o", torch.float32, (n, 3)), ("d", torch.float32, (n, 3)),
+                              ("t0", torch.float32, (n,)), ("maxt", torch.float32, (n,)),
+                              ("trace_eps", torch.float32, (n,)), ("active", torch.uint8, (n,)),
+                              ("refine_active", torch.uint8, (n,))):
+        x = lanes[key]
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != data.device:
+            raise ValueError(f"sphere-trace operand '{key}' must be a contiguous {shape} {dtype} on "
+                             f"{data.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    origin = origin.contiguous()
+    its_t = torch.empty(n, dtype=torch.float32, device=data.device)
+    num_steps = torch.empty(n, dtype=torch.int32, device=data.device)
+    refine_steps = params.refine_steps if params.refine_intersection else 0
+    zres, yres, xres = data.shape
+    with torch.cuda.device(data.device):
+        err = kernels.library("sphere_trace").sphere_trace_run(
+            data.data_ptr(), xres, yres, zres, origin.data_ptr(),
+            *(lanes[k].data_ptr() for k in ("o", "d", "t0", "maxt", "trace_eps", "active", "refine_active")),
+            ctypes.c_float(params.step_scale), int(params.max_steps), int(refine_steps),
+            its_t.data_ptr(), num_steps.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    sphere_trace.kernel_launches += 1
+    if err != 0:
+        raise RuntimeError(f"sphere_trace_run: CUDA error {err} at launch")
+    return its_t, num_steps
+
+
+@torch.no_grad()
+def sphere_trace_plain(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF, active=True,
+                       refine_active=True):
+    """Plain PyTorch version of the sphere-trace kernel (any SDF, any
+    device): the masked, lane-compacted loop of the trace, then the
+    refinement."""
+    _check_trace_params(params)
     sdf = sdf.detach()
     o = o.detach()
     d = d.detach()

@@ -13,15 +13,21 @@ Semantics kept from the reference:
   * seed bookkeeping ``seed += 1 + n_sensors`` per view;
   * Laplacian regularizer, grad clamp ±0.1, NaN suppression;
   * adaptive LR ``32/res · lr/(1+0.02 i)``; Adam state reset on upsampling;
-  * EMA of parameters.
+  * EMA of parameters;
+  * with an ``output_dir``: ``params/<key>-data-NNNN.vol`` every
+    ``checkpoint_frequency`` iterations and at the last one, the EMA in
+    ``params/<key>-final.vol`` and ``metadata.json`` (written also when the
+    run fails), read back by :func:`load_checkpoint`.
 
-Not implemented here: checkpoints, resume and file output (``output_dir``
-must be ``None``), device meshes.
+Not implemented here: resume, the per-view progress images and the loss
+plot of the JAX package's ``optimize_shape``, device meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 import time
 
 import torch
@@ -34,6 +40,7 @@ from ..models.scenes_zoo import scene_rig_full, target_sdf
 from ..ops.film import BORDER, develop
 from ..ops.initializers import upsample_sdf
 from ..ops.sdf import GridSDF
+from ..utils.io import dump_metadata, read_vol, write_vol
 from . import losses as losses_mod
 from .adam import adam_init, adam_step
 from .configs import BaseConfig
@@ -41,7 +48,7 @@ from .opt_configs import SdfConfig
 from .regularizations import discrete_laplacian_reg
 from .variables import SdfVariableSpec, ema_update
 
-__all__ = ["optimize_shape", "render_reference_images", "OptimizationResult"]
+__all__ = ["optimize_shape", "render_reference_images", "load_checkpoint", "OptimizationResult"]
 
 _LOSSES = {
     "l1": losses_mod.l1,
@@ -171,6 +178,40 @@ def _finish_step(params, adam_state, ema, grads, total_loss, lrs, *, specs, mask
     return new_params, new_state, new_ema, total_loss
 
 
+def _write_params(output_dir, params: dict, tag: str):
+    for key, value in params.items():
+        write_vol(os.path.join(output_dir, "params", f"{key}-{tag}.vol"), value.detach().cpu().numpy())
+
+
+def load_checkpoint(output_dir: str, iteration, specs, device=None):
+    """Restore saved parameters from ``output_dir/params``.  ``iteration`` is
+    an int (``<key>-data-NNNN.vol``) or a tag such as ``'final'``
+    (``<key>-final.vol``, the EMA).  A missing file falls back to the latest
+    iteration checkpoint (never silently to the EMA), then to any file of the
+    key.  ``device=None`` means the card (raises when there is none)."""
+    device = resolve_device(device)
+    params = {}
+    pdir = os.path.join(output_dir, "params")
+    for s in specs:
+        if isinstance(iteration, int):
+            path = os.path.join(pdir, f"{s.key}-data-{iteration:04d}.vol")
+        else:
+            path = os.path.join(pdir, f"{s.key}-{iteration}.vol")
+        if not os.path.exists(path):
+            cands = sorted(glob.glob(os.path.join(pdir, f"{s.key}-data-*.vol")))
+            if not cands:
+                cands = sorted(glob.glob(os.path.join(pdir, f"{s.key}-*.vol")))
+            if not cands:
+                raise FileNotFoundError(f"no checkpoint for '{s.key}' in {pdir}")
+            print(f"[load_checkpoint] '{path}' missing; using '{cands[-1]}'")
+            path = cands[-1]
+        data = read_vol(path)
+        if data.shape[-1] == 1 and s.key == "sdf":
+            data = data[..., 0]
+        params[s.key] = torch.as_tensor(data, device=device)
+    return params
+
+
 def optimize_shape(
     scene_name: str,
     opt_cfg: SdfConfig,
@@ -191,10 +232,9 @@ def optimize_shape(
     ``device=None`` runs on the CUDA card and raises when there is none;
     pass ``device="cpu"`` for the host.  ``max_lanes`` caps the lanes of one
     render chunk.  ``checkpoint_cb(i, params, loss_values)`` is called after
-    every iteration.
+    every iteration.  With ``output_dir``, checkpoints, the final EMA and
+    ``metadata.json`` are written there (see the module docstring).
     """
-    if output_dir is not None:
-        raise NotImplementedError("checkpoint / metadata / image output is not ported: output_dir must be None")
     if method_cfg.use_finite_differences:
         raise NotImplementedError("finite-difference gradients are not ported")
     device = resolve_device(device)
@@ -236,53 +276,63 @@ def optimize_shape(
     )
     cfg_primal = dataclasses.replace(cfg_grad, spp=method_cfg.spp * method_cfg.primal_spp_mult)
 
-    for i in range(n_iter):
-        t_iter = time.perf_counter()
-        # --- phase bookkeeping: film res + grid upsampling ---
-        res = opt_cfg.res_at(i)
-        cams = _make_cameras(opt_cfg, res[0], res[1], device)
-        for s in specs:
-            if s.upsample_iter and i in s.upsample_iter:
-                params[s.key] = upsample_sdf(params[s.key])
-                # Adam state (incl. the per-key step counter t) resets on
-                # shape change
-                sub = adam_init({s.key: params[s.key]})
-                for part in ("m", "v", "t"):
-                    adam_state[part][s.key] = sub[part][s.key]
-                params[s.key] = s.validate(params[s.key], -1)
-                ema[s.key] = params[s.key]
-        base = Scene(sdf=GridSDF.create(torch.zeros_like(params["sdf"])), bsdf=bsdf,
-                     emitter=emitter, cameras=cams)
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+    try:
+        for i in range(n_iter):
+            t_iter = time.perf_counter()
+            # --- phase bookkeeping: film res + grid upsampling ---
+            res = opt_cfg.res_at(i)
+            cams = _make_cameras(opt_cfg, res[0], res[1], device)
+            for s in specs:
+                if s.upsample_iter and i in s.upsample_iter:
+                    params[s.key] = upsample_sdf(params[s.key])
+                    # Adam state (incl. the per-key step counter t) resets on
+                    # shape change
+                    sub = adam_init({s.key: params[s.key]})
+                    for part in ("m", "v", "t"):
+                        adam_state[part][s.key] = sub[part][s.key]
+                    params[s.key] = s.validate(params[s.key], -1)
+                    ema[s.key] = params[s.key]
+            base = Scene(sdf=GridSDF.create(torch.zeros_like(params["sdf"])), bsdf=bsdf,
+                         emitter=emitter, cameras=cams)
 
-        view_indices = opt_cfg.sensor_indices(i)
-        batch = len(view_indices)
-        seeds, seeds_grad = [], []
-        for _ in range(batch):
-            seeds.append(seed)
-            seeds_grad.append(seed + 1 + opt_cfg.n_sensors)
-            seed += 1 + opt_cfg.n_sensors
-        refs = refs_pyramid[res][view_indices]
+            view_indices = opt_cfg.sensor_indices(i)
+            batch = len(view_indices)
+            seeds, seeds_grad = [], []
+            for _ in range(batch):
+                seeds.append(seed)
+                seeds_grad.append(seed + 1 + opt_cfg.n_sensors)
+                seed += 1 + opt_cfg.n_sensors
+            refs = refs_pyramid[res][view_indices]
 
-        lrs = {s.key: s.lr_for(method_cfg.learning_rate, i, params[s.key].shape[0]) for s in specs}
+            lrs = {s.key: s.lr_for(method_cfg.learning_rate, i, params[s.key].shape[0]) for s in specs}
 
-        loss, grads = _view_batch_loss_grads(
-            params, base, view_indices, seeds, seeds_grad, refs,
-            loss_name=opt_cfg.loss, cfg_primal=cfg_primal, cfg_grad=cfg_grad,
-            batch=batch, max_lanes=max_lanes,
-        )
-        params, adam_state, ema, loss = _finish_step(
-            params, adam_state, ema, grads, loss, lrs,
-            specs=specs, mask_updates=method_cfg.mask_optimizer,
-        )
-        loss_values.append(float(loss))  # synchronises with the device
-        if on_card:
-            torch.cuda.synchronize(device)
-        iter_seconds.append(time.perf_counter() - t_iter)
-        if verbose and (i % 8 == 0 or i == n_iter - 1):
-            print(f"[{i:4d}] loss = {loss_values[-1]:.5f}  res={res}  sdf={tuple(params['sdf'].shape)}")
-        if checkpoint_cb is not None:
-            checkpoint_cb(i, params, loss_values)
-
-    total_time = time.time() - t_start
+            loss, grads = _view_batch_loss_grads(
+                params, base, view_indices, seeds, seeds_grad, refs,
+                loss_name=opt_cfg.loss, cfg_primal=cfg_primal, cfg_grad=cfg_grad,
+                batch=batch, max_lanes=max_lanes,
+            )
+            params, adam_state, ema, loss = _finish_step(
+                params, adam_state, ema, grads, loss, lrs,
+                specs=specs, mask_updates=method_cfg.mask_optimizer,
+            )
+            loss_values.append(float(loss))  # synchronises with the device
+            if on_card:
+                torch.cuda.synchronize(device)
+            iter_seconds.append(time.perf_counter() - t_iter)
+            if verbose and (i % 8 == 0 or i == n_iter - 1):
+                print(f"[{i:4d}] loss = {loss_values[-1]:.5f}  res={res}  sdf={tuple(params['sdf'].shape)}")
+            if output_dir and (i % opt_cfg.checkpoint_frequency == 0 or i == n_iter - 1):
+                _write_params(output_dir, params, f"data-{i:04d}")
+            if checkpoint_cb is not None:
+                checkpoint_cb(i, params, loss_values)
+    finally:
+        # record what there is, also when an iteration raised
+        total_time = time.time() - t_start
+        if output_dir:
+            _write_params(output_dir, ema, "final")
+            dump_metadata(method_cfg, opt_cfg, {"total_time": total_time, "loss_values": loss_values},
+                          os.path.join(output_dir, "metadata.json"))
     final_scene = Scene(sdf=GridSDF.create(params["sdf"]), bsdf=bsdf, emitter=emitter, cameras=cams_full)
     return OptimizationResult(params, ema, loss_values, total_time, final_scene, iter_seconds)

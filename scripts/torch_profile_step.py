@@ -7,8 +7,9 @@ Builds the ``no-tex-12`` / ``warp`` training step of ``optimize_shape`` at its
 published widths (128² film, 256 primal + 64 gradient spp) on a ``--res``³
 sphere grid against the procedural ``bunny`` references, runs the loss and
 gradient of ONE view under ``torch.profiler``, and prints the wall time of
-the view and the kernels that take most of the device time.  Needs a CUDA
-card; fails without one.
+the view, its device idle share, the number of CUDA kernel launches (and of
+the hand-written kernels' wrapper calls) and the kernels that take most of
+the device time.  Needs a CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -35,7 +36,10 @@ def main():
     from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
     from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
     from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops.grid import grid_eval_grad_detached
     from differentiable_sdf_rendering_tpu_torch.ops.initializers import create_sphere_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops.redistance import redistance
+    from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace
     from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
     from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
     from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
@@ -65,10 +69,13 @@ def main():
 
     step()  # warm-up
     torch.cuda.synchronize()
+    wrappers = (sphere_trace, grid_eval_grad_detached, redistance)
+    before = [w.kernel_launches for w in wrappers]
     t0 = time.perf_counter()
     step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    wrapper_calls = {w.__name__: w.kernel_launches - b for w, b in zip(wrappers, before)}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
@@ -84,6 +91,7 @@ def main():
     report = {
         "card": torch.cuda.get_device_name(0), "grid_res": args.res, "view_wall_s": wall,
         "device_busy_s": device_total / 1e6, "device_idle_share": 1.0 - device_total / 1e6 / wall,
+        "cuda_kernel_launches": sum(e.count for e in rows), "wrapper_calls": wrapper_calls,
         "top_kernels": top,
     }
     if args.out:

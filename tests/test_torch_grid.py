@@ -1,5 +1,7 @@
 """Cubic B-spline grid interpolation of the port vs the JAX package's per-tap
-path: value, gradient, Hessian and the VJPs w.r.t. grid and points."""
+path: value, gradient, Hessian and the VJPs w.r.t. grid and points; the
+detached value-and-gradient entry whose CPU path is the plain version of the
+CUDA kernel ``csrc/grid_eval.cu``."""
 
 import jax
 import jax.numpy as jnp
@@ -73,3 +75,20 @@ def test_vjp_data_and_points(case):
     # gradient sums of up to 120×64 scattered terms, taken in another order
     np.testing.assert_allclose(to_np(d_t.grad), np.asarray(dj), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(to_np(p_t.grad), np.asarray(pj), rtol=1e-4, atol=2e-3)
+
+
+def test_grid_eval_grad_detached(case):
+    """The plain version of the grid-evaluation kernel against the JAX
+    package's ``grid_eval_grad`` at ``p - origin``, rtol 1e-5 (a 64-term sum
+    taken in another order); the wrapper on CPU tensors is that plain
+    version, and it builds no graph."""
+    data, p = case
+    origin = np.array([0.1, -0.05, 0.2], np.float32)
+    vj, gj = jgrid.grid_eval_grad(jnp.asarray(data), jnp.asarray(p) - jnp.asarray(origin))
+    d_t = t(data).requires_grad_(True)
+    vt, gt = tgrid.grid_eval_grad_detached(d_t, t(p), t(origin))
+    assert not vt.requires_grad and not gt.requires_grad
+    np.testing.assert_allclose(to_np(vt), np.asarray(vj), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(to_np(gt), np.asarray(gj), rtol=RTOL, atol=1e-4)   # × res
+    vp, gp = tgrid.grid_eval_grad_detached_plain(t(data), t(p), t(origin))
+    assert torch.equal(vp, vt) and torch.equal(gp, gt)

@@ -1,4 +1,5 @@
-"""The port imports torch only: no jax, no flax, nothing of the JAX package."""
+"""The port imports torch only: no jax, no flax, nothing of the JAX package
+(its modules, its two command-line entry points and ``chip_smoke.py``)."""
 
 import os
 import re
@@ -20,6 +21,7 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke                     # imported, not run
+import optimize_torch, render_turntable_torch
 leaked = [m for m in set(sys.modules) - before
           if m.split(".")[0] in ("jax", "jaxlib", "flax") and sys.modules[m] is not None]
 assert not leaked, leaked
@@ -32,7 +34,8 @@ def _py_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(base, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for name in ("chip_smoke.py", "optimize_torch.py", "render_turntable_torch.py"):
+        yield os.path.join(ROOT, name)
 
 
 def test_imports_with_jax_blocked():

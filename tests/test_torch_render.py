@@ -27,13 +27,21 @@ from torch_port_helpers import jax_scene_to_numpy, perturbed_sphere, t, to_np
 def scenes():
     """The ``__graft_entry__.entry`` scene (sphere SDF, two regular cameras,
     diffuse BSDF) cut to 16³ / 16², under the default rig's gradient sky; the
-    port's copy is carried across as numpy by ``utils/convert``."""
+    port's copy is carried across as numpy by ``utils/convert``.  The JAX
+    functions of this file run under ``jax.jit``: one XLA program each
+    instead of one compilation per primitive (the same values up to XLA's
+    fusion, far inside every tolerance below)."""
     sj = JScene.create(
-        jinit.create_sphere_sdf(16, radius=0.3),
+        jax.jit(lambda: jinit.create_sphere_sdf(16, radius=0.3))(),
         cameras=jregular_cameras(2, resx=16, resy=16),
         emitter=jemitter.make_gradient_envmap(),
     )
     return sj, convert.scene_from_numpy(jax_scene_to_numpy(sj), "cpu")
+
+
+# view and seed are traced: the two primal cases share one compilation
+_jrender_primal = jax.jit(lambda scene, view, seed: jrender(scene, view, seed=seed, cfg=JRenderConfig(spp=2),
+                                                             mode="primal"))
 
 
 def test_render_config_defaults_equal():
@@ -49,7 +57,7 @@ def test_render_config_defaults_equal():
 @pytest.mark.parametrize("view,seed", [(0, 0), (1, 5)])
 def test_primal_image(scenes, view, seed):
     sj, st = scenes
-    want = np.asarray(jrender(sj, view, seed=seed, cfg=JRenderConfig(spp=2), mode="primal"))
+    want = np.asarray(_jrender_primal(sj, view, seed))
     got = tinteg.render(st, view, seed=seed, cfg=tinteg.RenderConfig(spp=2), mode="primal", device="cpu")
     assert tuple(got.shape) == (16, 16, 4) and not got.requires_grad
     # same samples (bit-equal random numbers); float32 shading chains and the
@@ -71,11 +79,16 @@ def test_grad_mode_vjp_to_grid(scenes):
     sj, st = scenes
     cot = np.random.default_rng(0).normal(size=(16, 16, 4)).astype(np.float32)
 
-    def fj(data):
-        return jrender(sj.replace(sdf=JGridSDF.create(data)), 0, seed=5, cfg=JRenderConfig(spp=2), mode="grad")
+    @jax.jit
+    def image_and_vjp(data, cotangent):
+        def fj(d):
+            return jrender(sj.replace(sdf=JGridSDF.create(d)), 0, seed=5, cfg=JRenderConfig(spp=2), mode="grad")
 
-    img_j, vjp = jax.vjp(fj, sj.sdf.data)
-    g_j = np.asarray(vjp(jnp.asarray(cot))[0])
+        img, vjp = jax.vjp(fj, data)
+        return img, vjp(cotangent)[0]
+
+    img_j, g_j = image_and_vjp(sj.sdf.data, jnp.asarray(cot))
+    g_j = np.asarray(g_j)
 
     leaf = st.sdf.data.clone().requires_grad_(True)
     scene = st.replace(sdf=st.sdf.with_data(leaf))

@@ -81,8 +81,8 @@ def test_configs_equal_jax():
 def test_unported_options_raise():
     method = tconfigs.get_config("warp")
     cfg = topt_configs.SdfConfig(upsample_iter=(), **TINY)
-    with pytest.raises(NotImplementedError):
-        optimize_shape(SCENE, cfg, method, output_dir="out", device="cpu")
+    with pytest.raises(NotImplementedError):  # .vol scene assets
+        optimize_shape(SCENE, cfg, method, scene_dir="scenes", device="cpu")
     with pytest.raises(NotImplementedError):
         optimize_shape(SCENE, cfg, tconfigs.get_config("fd"), device="cpu")
     with pytest.raises(NotImplementedError):

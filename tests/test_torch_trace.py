@@ -1,6 +1,10 @@
 """Sphere tracing of the port vs the JAX package on a perturbed 16³ sphere:
-512 rays including misses, grazing rays, rays from inside the box and shadow
-rays with a finite extent."""
+512 rays including misses, grazing rays, rays from inside the box, shadow
+rays with a finite extent, inactive lanes and lanes without refinement.
+
+``sphere_trace`` on CPU tensors is the plain version of the CUDA kernel
+``csrc/sphere_trace.cu`` (``sphere_trace_plain``); the kernel itself is held
+against that plain version on the card by ``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +15,7 @@ from differentiable_sdf_rendering_tpu.ops import trace as jtrace
 from differentiable_sdf_rendering_tpu.ops.redistance import redistance as jredistance
 from differentiable_sdf_rendering_tpu.ops.sdf import GridSDF as JGridSDF, TraceParams as JTraceParams
 from differentiable_sdf_rendering_tpu_torch.ops import trace as ttrace
-from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF, TraceParams
+from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF, SphereSDF, TraceParams
 from torch_port_helpers import perturbed_sphere, t, to_np
 
 
@@ -44,29 +48,69 @@ def case():
     return grid, o, d, maxt
 
 
+@pytest.fixture(scope="module")
+def masked(case):
+    """The JAX package's ``sphere_trace`` (traced once) and the port's plain
+    version on the same rays, with a per-lane ``active`` mask (every fifth
+    lane off), ``refine_active`` off on every third lane and the finite
+    ``maxt`` of ``case``."""
+    grid, o, d, maxt = case
+    active = np.arange(512) % 5 != 4
+    refine = np.arange(512) % 3 != 0
+    want = np.asarray(jtrace.sphere_trace(
+        JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), JTraceParams(),
+        maxt=jnp.asarray(maxt), active=jnp.asarray(active), refine_active=jnp.asarray(refine),
+    ))
+    args = (GridSDF.create(t(grid)), t(o), t(d), TraceParams())
+    kw = dict(maxt=t(maxt), active=torch.tensor(active), refine_active=torch.tensor(refine))
+    got = to_np(ttrace.sphere_trace_plain(*args, **kw))
+    return dict(want=want, got=got, active=active, refine=refine, args=args, kw=kw)
+
+
 def test_trace_params_defaults_equal():
     import dataclasses
 
     assert dataclasses.asdict(TraceParams()) == dataclasses.asdict(JTraceParams())
 
 
-def test_sphere_trace(case):
-    grid, o, d, maxt = case
-    refine = np.arange(512) % 3 != 0
-    want = np.asarray(jtrace.sphere_trace(
-        JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), JTraceParams(),
-        maxt=jnp.asarray(maxt), refine_active=jnp.asarray(refine),
-    ))
-    got = to_np(ttrace.sphere_trace(
-        GridSDF.create(t(grid)), t(o), t(d), TraceParams(), maxt=t(maxt),
-        refine_active=torch.tensor(refine),
-    ))
+def test_sphere_trace(masked):
+    want = masked["want"]
+    # the wrapper on CPU tensors: the plain version, bit for bit
+    got = to_np(ttrace.sphere_trace(*masked["args"], **masked["kw"]))
+    np.testing.assert_array_equal(got, masked["got"])
     hit = np.isfinite(want)
     assert 100 < hit.sum() < 450  # the ray set has both hits and misses
     np.testing.assert_array_equal(np.isfinite(got), hit)
     # its_t ends inside the (0, 1e-6·maxt] shell of a surface crossed at up to
     # 60°: the two sides may stop a last-bit step apart
     np.testing.assert_allclose(got[hit], want[hit], rtol=0, atol=1e-5)
+
+
+def _lane_group(name, case, masked):
+    _, o, _, maxt = case
+    inside = np.all((o >= -0.05) & (o <= 1.05), axis=-1)  # the 0.05-expanded bbox of the grid
+    return {
+        "inactive": ~masked["active"],
+        "refine_off": masked["active"] & ~masked["refine"],
+        "finite_maxt": masked["active"] & np.isfinite(maxt),
+        "inside_start": masked["active"] & inside,
+    }[name]
+
+
+@pytest.mark.parametrize("group", ["inactive", "refine_off", "finite_maxt", "inside_start"])
+def test_sphere_trace_plain_lane_groups(case, masked, group):
+    """The kernel's plain version against the JAX package on each kind of
+    lane the kernel treats apart: hit bits equal, ``its_t`` within 1e-5."""
+    sel = _lane_group(group, case, masked)
+    want, got = masked["want"][sel], masked["got"][sel]
+    assert sel.sum() >= 40
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    hit = np.isfinite(want)
+    np.testing.assert_allclose(got[hit], want[hit], rtol=0, atol=1e-5)
+    if group == "inactive":
+        assert not hit.any()
+    else:
+        assert 5 < hit.sum() < sel.sum()  # the group has both hits and misses
 
 
 def test_sphere_trace_warp(case):
@@ -131,3 +175,35 @@ def test_unported_options_raise(case):
         ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(over_relax=1.4))
     with pytest.raises(NotImplementedError):
         ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(refine="newton"))
+    # the kernel's operand setup (reached on a CUDA tensor) refuses the same
+    # options, and any SDF but a grid
+    with pytest.raises(NotImplementedError):
+        ttrace._kernel_lanes(sdf, t(o), t(d), TraceParams(refine="newton"))
+    with pytest.raises(NotImplementedError):
+        ttrace._kernel_lanes(SphereSDF.create(device="cpu"), t(o), t(d), TraceParams())
+
+
+def test_kernel_operands(case, masked):
+    """The flat per-lane operands handed to the CUDA kernel: shapes, types,
+    contiguity, and the ray setup they carry (inactive and missed lanes
+    inactive; finite maxt kept per lane)."""
+    grid, o, d, maxt = case
+    lanes, lead = ttrace._kernel_lanes(*masked["args"], **masked["kw"])
+    assert lead == (512,)
+    for key in ("o", "d"):
+        assert lanes[key].shape == (512, 3) and lanes[key].dtype == torch.float32
+    for key in ("t0", "maxt", "trace_eps", "active", "refine_active"):
+        assert lanes[key].shape == (512,) and lanes[key].is_contiguous()
+    assert lanes["active"].dtype == lanes["refine_active"].dtype == torch.uint8
+    np.testing.assert_allclose(np.linalg.norm(to_np(lanes["d"]), axis=-1), 1.0, rtol=1e-6)
+    active = to_np(lanes["active"]).astype(bool)
+    assert not active[~masked["active"]].any()
+    np.testing.assert_array_equal(to_np(lanes["refine_active"]).astype(bool), masked["refine"])
+    # every lane that hits in the plain version is active for the kernel
+    assert active[np.isfinite(masked["got"])].all()
+    fin = np.isfinite(maxt) & active
+    assert np.all(to_np(lanes["maxt"])[fin] <= maxt[fin])
+    # a scalar mask and maxt broadcast to every lane
+    lanes1, _ = ttrace._kernel_lanes(GridSDF.create(t(grid)), t(o), t(d), TraceParams(), maxt=2.0, active=True,
+                                     refine_active=False)
+    assert not to_np(lanes1["refine_active"]).any() and np.all(to_np(lanes1["maxt"]) <= 2.0)

@@ -28,6 +28,15 @@ def case():
     return grid, o, d
 
 
+@pytest.fixture(scope="module")
+def its(case):
+    """The JAX package's primal trace of ``case``'s rays."""
+    from differentiable_sdf_rendering_tpu.ops.trace import sphere_trace
+
+    grid, o, d = case
+    return np.asarray(jax.jit(lambda g: sphere_trace(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)))(grid))
+
+
 def test_warp_config_defaults_equal():
     import dataclasses
 
@@ -44,7 +53,8 @@ def test_reparameterize_values_and_grid_vjp(case):
     rng = np.random.default_rng(2)
     c_d = rng.normal(size=d.shape).astype(np.float32)
     c_det = rng.normal(size=d.shape[0]).astype(np.float32)
-    (_, (its_j, d1_j, det_j)), g_j = jax.value_and_grad(fj, has_aux=True)(jnp.asarray(grid))
+    # one XLA program (jit) instead of one compilation per primitive
+    (_, (its_j, d1_j, det_j)), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True))(jnp.asarray(grid))
 
     data = t(grid).requires_grad_(True)
     its_t, d1, det = twarp.reparameterize(GridSDF.create(data), t(o), t(d))
@@ -67,7 +77,7 @@ def test_warp_eval_divergence_and_vjp(case):
     grid, o, d = case
     from differentiable_sdf_rendering_tpu.ops.trace import sphere_trace_warp
 
-    res = sphere_trace_warp(JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d))
+    res = jax.jit(lambda g: sphere_trace_warp(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)))(jnp.asarray(grid))
     wt = np.asarray(res.warp_t)
     x = o + np.where(np.isfinite(wt), wt, 0.0)[:, None] * d
     args = dict(t=wt, dt_dx=np.asarray(res.warp_t_d), mult=np.asarray(res.warp_weight),
@@ -84,7 +94,7 @@ def test_warp_eval_divergence_and_vjp(case):
         )
         return jnp.sum(warp * c_w) + jnp.sum(div * c_div), div
 
-    (_, div_j), g_j = jax.value_and_grad(fj, has_aux=True)(jnp.asarray(grid))
+    (_, div_j), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True))(jnp.asarray(grid))
     data = t(grid).requires_grad_(True)
     warp, div = twarp.warp_eval(
         GridSDF.create(data), t(x), t(d), t(args["t"]), t(args["dt_dx"]), twarp.WarpConfig(),
@@ -98,13 +108,17 @@ def test_warp_eval_divergence_and_vjp(case):
     np.testing.assert_allclose(to_np(data.grad), g_j, rtol=RTOL, atol=1e-5 * np.abs(g_j).max())
 
 
-def test_surface_interaction(case):
+@pytest.mark.parametrize("differentiable", [True, False])
+def test_surface_interaction(case, its, differentiable):
+    """Both branches; ``differentiable=False`` with autograd off (the primal
+    render) takes the normal from the detached grid evaluation, whose CPU
+    path is the plain version of the CUDA kernel ``csrc/grid_eval.cu``."""
     grid, o, d = case
-    from differentiable_sdf_rendering_tpu.ops.trace import sphere_trace
-
-    its = np.asarray(sphere_trace(JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d)))
-    sj = jint.compute_surface_interaction(JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), jnp.asarray(its))
-    st = tint.compute_surface_interaction(GridSDF.create(t(grid)), t(o), t(d), t(its))
+    sj = jint.compute_surface_interaction(JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), jnp.asarray(its),
+                                          differentiable=differentiable)
+    with torch.set_grad_enabled(differentiable):
+        st = tint.compute_surface_interaction(GridSDF.create(t(grid)), t(o), t(d), t(its),
+                                              differentiable=differentiable)
     np.testing.assert_array_equal(to_np(st.valid), np.asarray(sj.valid))
     v = np.asarray(sj.valid)
     assert 50 < v.sum() < 250
@@ -118,3 +132,7 @@ def test_surface_interaction(case):
     np.testing.assert_allclose(to_np(st.p)[~v], o[~v], rtol=0, atol=1e-6)
     np.testing.assert_allclose(to_np(st.t)[v], np.asarray(sj.t)[v], rtol=0, atol=1e-5)
     assert np.all(np.isinf(to_np(st.t)[~v]))
+    if not differentiable:
+        # the detached normal: elementwise float32 with the gradient's
+        # 64-term sums taken in another order
+        np.testing.assert_allclose(to_np(st.n)[v], np.asarray(sj.n)[v], rtol=1e-5, atol=1e-6)
