@@ -14,9 +14,17 @@ line; any failure raises and the script exits non-zero:
    at the shapes the training path gives it, with CUDA-event timings:
    redistancing at 16³, 32³, 64³ and the 128³ target (with the CUDA
    launches of one call as the kernel's C entry counts them); the sphere
-   trace on one 2²¹-lane primal chunk of a ``bunny`` view (camera rays and
-   the shadow rays from their hits) at a 64³ grid and at the 128³ target;
-   the detached grid evaluation at 2²¹ points near the surface.
+   trace (K1) on one 2²¹-lane primal chunk of a ``bunny`` view (camera rays
+   and the shadow rays from their hits) at a 64³ grid and at the 128³
+   target: bare launch, wrapper, two launches bit-identical, and the step
+   statistics of the rays in lane
+   order with the time without the rays of 128 steps or more; the detached
+   grid evaluation (K2) on three point sets (the path's own points in lane
+   order, 2²¹ points near the surface in random order, the same in Morton
+   order); after these, K1 on the analytic sphere of the Pallas probe
+   ``scripts/trace_probe_r3.py::probe_pallas`` (262,144 rays).
+   ``--kernels-only`` stops after the grid cases (no sphere case, no later
+   phase).
 4. ``reference`` — a small primal render on the card against the same
    package's plain path on the host.
 5. ``train``   — ``optimize_shape("bunny", no-tex-12, warp)`` at the
@@ -29,7 +37,9 @@ line; any failure raises and the script exits non-zero:
    ``optimize_torch.main`` (``bunny``, ``no-tex-12``, 1 iteration) and
    ``render_turntable_torch.main`` on its checkpoint at the CLI's published
    512², 256 spp, 4 of its 64 frames; counts zeroed before and read after.
-7. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+7. ``launch_count`` — the CUDA launches of one K1 call, as ``torch.profiler``
+   records them, after the timed phases.
+8. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -53,16 +63,19 @@ PEAK_FP32_FLOPS = 67e12
 # three candidate solutions, 4 for the selection, 2 for min and frozen select.
 REDISTANCE_OPS_PER_VOXEL_PASS = 47
 # Arithmetic of one value-only grid evaluation in csrc/sphere_trace.cu (see
-# csrc/tricubic.cuh), counted for the separable contraction, the fewest
-# operations the function needs (the kernel itself sums the 64 taps in the
-# plain version's non-separable order, to match its rounding): ray point 9;
+# csrc/tricubic.cuh), counted for the separable contraction that the kernel
+# uses, the fewest operations the function needs: ray point 9;
 # per axis 4 for the fraction and 19 for the basis weights (69); contraction
 # 16 rows x (4 products, 3 adds) over x, 4 x 7 over y, 7 over z (147); step
 # and tests 5.  Integer index arithmetic is not counted.
 TRACE_OPS_PER_EVAL = 230
-# Per ray of the trace kernel: o, d (24 B), t0, maxt, trace_eps (12 B),
-# active, refine_active (2 B) read; its_t, num_steps (8 B) written.
-TRACE_BYTES_PER_RAY = 46
+# Bytes of a trace: the rays and per-lane operands as the caller passes them
+# (a broadcast operand, such as a camera's origin, counts once), its_t
+# written (4 B a ray), the SDF's parameters read once; see trace_bytes.  The
+# kernel's num_steps output is a diagnostic (the step statistics and the
+# operation count read it; sphere_trace drops it), so the bound does not
+# charge it.
+TRACE_OUT_BYTES_PER_RAY = 4
 # Arithmetic of one value-and-gradient evaluation in csrc/grid_eval.cu, again
 # for the separable contraction: point 3; per axis 4 for the fraction, 19 for
 # the weights and 14 for their derivatives (111); contraction: per (z, y) row
@@ -221,108 +234,282 @@ def primal_chunk_rays(device):
     return o, d, uni, cfg.trace
 
 
+def step_statistics(steps):
+    """How well one-thread-per-ray lanes in lane order fill their warps, from
+    the per-ray grid evaluations ``steps`` (the kernel's ``num_steps``): SIMT
+    efficiency = sum of steps / sum over 32-lane warps of 32 x the warp's
+    longest ray; the sum over 128-lane blocks of their longest ray; the lanes
+    of 128 steps or more."""
+    import torch
+
+    s = steps.reshape(-1).to(torch.int64)
+
+    def group_max(k):
+        return torch.nn.functional.pad(s, (0, (-s.numel()) % k)).view(-1, k).amax(dim=1)
+
+    warp_max = int(group_max(32).sum())
+    return {
+        "simt_efficiency": int(s.sum()) / (32 * warp_max) if warp_max else 1.0,
+        "sum_block_max_steps": int(group_max(128).sum()),
+        "lanes_ge_128_steps": int((s >= 128).sum()),
+    }
+
+
+def k1_bare(sdf, o, d, params, lanes_kw):
+    """A function that launches K1 alone, on operands prepared once as the
+    wrapper prepares them."""
+    from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
+
+    operands, _ = tr._kernel_operands(sdf, o, d, params, **lanes_kw)
+    return lambda: tr._launch_sphere_trace(operands, params)
+
+
+def cuda_launches_per_call(fn):
+    """CUDA kernels (and memsets) that one call of ``fn`` puts on the card,
+    as ``torch.profiler`` records them.  Run after the timed phases, so that
+    the profiler's tracing cannot reach the times of the training step, whose
+    host launches are its pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def trace_bytes(sdf, o, d, lanes_kw):
+    """Bytes a trace must move: each operand read once as stored (a stride-0
+    broadcast counts one row), its_t written once."""
+    def stored(x):
+        return x.element_size() * (x[0].numel() if x.stride(0) == 0 else x.numel())
+
+    params = [sdf.data, sdf.p] if hasattr(sdf, "data") else [sdf.p, sdf.r.reshape(1)]
+    operands = [o, d, *(v for v in lanes_kw.values() if hasattr(v, "stride"))]
+    return sum(stored(x) for x in params + operands) + d.shape[0] * TRACE_OUT_BYTES_PER_RAY
+
+
 def trace_case(sdf, o, d, params, lanes_kw):
     """K1 against its plain version on one set of rays: agreement, CUDA-event
     times of the bare launch and of the plain version, and the bound from
-    the steps this run's rays took."""
+    the steps this run's rays took.  Diagnostics: the step statistics of the
+    rays in lane order, and the bare launch with the rays of 128 steps or more
+    switched off through ``active``."""
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
 
     its_k, evals_per_ray = tr._sphere_trace_kernel(sdf, o, d, params, **lanes_kw)
+    its_k2, evals2 = tr._sphere_trace_kernel(sdf, o, d, params, **lanes_kw)
     its_p = tr.sphere_trace_plain(sdf, o, d, params, **lanes_kw)
     torch.cuda.synchronize()
+    # a ray's result depends on its own inputs only, whatever lane or block
+    # took it: two launches are bit-identical
+    if not (torch.equal(its_k, its_k2) and torch.equal(evals_per_ray, evals2)):
+        raise AssertionError("two launches of the sphere-trace kernel on the same rays differ")
     hit_k, hit_p = torch.isfinite(its_k), torch.isfinite(its_p)
     both = hit_k & hit_p
     hit_diff = float((hit_k != hit_p).float().mean())
     max_dt = float((its_k[both] - its_p[both]).abs().max()) if bool(both.any()) else 0.0
-    # operands of the bare launch, prepared as the wrapper prepares them
-    lanes, _ = tr._kernel_lanes(sdf, o, d, params, **lanes_kw)
     n = o.shape[0]
     evals = int(evals_per_ray.sum())
     t_ops = evals * TRACE_OPS_PER_EVAL / PEAK_FP32_FLOPS * 1e3
-    t_bytes = (n * TRACE_BYTES_PER_RAY + sdf.data.numel() * 4 + 12) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = trace_bytes(sdf, o, d, lanes_kw) / PEAK_BYTES_PER_S * 1e3
+    short = evals_per_ray < 128
+    if "active" in lanes_kw:
+        short = short & lanes_kw["active"]
     return {
         "rays": n, "grid_res": sdf.data.shape[0], "hit_share": float(hit_k.float().mean()),
         "hit_bits_differ_share": hit_diff, "max_abs_dits_t_both_hit": max_dt,
         "mean_num_steps": float(evals_per_ray.float().mean()), "max_num_steps": int(evals_per_ray.max()),
-        "ms": cuda_ms(lambda: tr._launch_sphere_trace(sdf.data, sdf.p, lanes, params)),
+        "ms": cuda_ms(k1_bare(sdf, o, d, params, lanes_kw)),
         "wrapper_ms": cuda_ms(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw)),
         "plain_ms": cuda_ms(lambda: tr.sphere_trace_plain(sdf, o, d, params, **lanes_kw), repeats=3, warmup=1),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "grid_evaluations": evals,
+        **step_statistics(evals_per_ray),
+        "ms_without_ge_128_step_rays": cuda_ms(k1_bare(sdf, o, d, params, {**lanes_kw, "active": short})),
+    }
+
+
+# Arithmetic of one evaluation of the analytic sphere in csrc/sphere_trace.cu:
+# ray point 9, |x - c| - r 10 (3 differences, 5 for the squared norm, the
+# root, the radius), step and tests 5.
+SPHERE_OPS_PER_EVAL = 24
+
+
+def sphere_probe_rays(device):
+    """The analytic sphere and the rays of the Pallas probe
+    scripts/trace_probe_r3.py::probe_pallas: ``(sdf, o, d, params)``."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import SphereSDF, TraceParams
+
+    n = 262_144
+    ang = torch.arange(n, dtype=torch.float32, device=device) * (6.283 / n)
+    o = torch.stack([0.5 + 2.0 * torch.cos(ang), 0.5 + 2.0 * torch.sin(ang), torch.full_like(ang, 0.5)], dim=-1)
+    d = 0.5 - o
+    return SphereSDF.create(device=device), o, d / torch.linalg.norm(d, dim=-1, keepdim=True), TraceParams()
+
+
+def sphere_case(device):
+    """K1 on the analytic sphere that the Pallas probe
+    scripts/trace_probe_r3.py::probe_pallas traces: 262,144 rays from a ring
+    of radius 2 around the centre of the r = 0.3 sphere at (0.5, 0.5, 0.5),
+    aimed at the centre.  Held against the plain version (the limits of the
+    grid cases) and against the analytic hit distance |o - c| - 0.3 (the
+    probe's own check: median error below 1e-3)."""
+    import math
+
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
+
+    sdf, o, d, params = sphere_probe_rays(device)
+    n = o.shape[0]
+    its_k, steps = tr._sphere_trace_kernel(sdf, o, d, params)
+    its_p = tr.sphere_trace_plain(sdf, o, d, params)
+    torch.cuda.synchronize()
+    hit_k, hit_p = torch.isfinite(its_k), torch.isfinite(its_p)
+    both = hit_k & hit_p
+    case = {
+        "rays": n, "hit_share": float(hit_k.float().mean()),
+        "hit_bits_differ_share": float((hit_k != hit_p).float().mean()),
+        "max_abs_dits_t_both_hit": float((its_k[both] - its_p[both]).abs().max()) if bool(both.any()) else math.inf,
+        "median_abs_err_analytic": float((its_k - (torch.linalg.norm(o - 0.5, dim=-1) - 0.3)).abs().median()),
+        "mean_num_steps": float(steps.float().mean()), "max_num_steps": int(steps.max()),
+    }
+    if not (case["hit_bits_differ_share"] <= 1e-3 and case["max_abs_dits_t_both_hit"] <= 1e-5
+            and case["median_abs_err_analytic"] < 1e-3 and case["hit_share"] == 1.0):
+        raise AssertionError(f"sphere-trace kernel on the analytic sphere: {case}")
+    t_ops = int(steps.sum()) * SPHERE_OPS_PER_EVAL / PEAK_FP32_FLOPS * 1e3
+    t_bytes = trace_bytes(sdf, o, d, {}) / PEAK_BYTES_PER_S * 1e3
+    case.update(
+        ms=cuda_ms(k1_bare(sdf, o, d, params, {})),
+        wrapper_ms=cuda_ms(lambda: tr.sphere_trace(sdf, o, d, params)),
+        plain_ms=cuda_ms(lambda: tr.sphere_trace_plain(sdf, o, d, params), repeats=3, warmup=1),
+        bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    emit({"phase": "kernels", "sphere_trace_analytic_sphere": case})
+    return case
+
+
+def morton_order(pts, origin, res):
+    """Permutation that sorts points by the Morton code of their voxel."""
+    import torch
+
+    v = torch.floor((pts - origin) * res).clamp(0, res - 1).to(torch.int64)
+    code = torch.zeros_like(v[:, 0])
+    for bit in range(max(1, (res - 1).bit_length())):
+        for axis in range(3):
+            code |= ((v[:, axis] >> bit) & 1) << (3 * bit + axis)
+    return torch.argsort(code)
+
+
+def grid_eval_case(data, origin, pts):
+    """K2 against its plain version on one point set: agreement (relative to
+    the output's scale) of both row-load paths, CUDA-event times and the
+    bound.  The scalar-row path is reached through a copy of the grid 4
+    bytes off 16-byte alignment."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops import grid as gridops
+
+    misaligned = torch.empty(data.numel() + 1, device=data.device)[1:].view(data.shape)
+    misaligned.copy_(data)
+    vk, gk = gridops.grid_eval_grad_detached(data, pts, origin)
+    vs, gs = gridops._grid_eval_grad_kernel(misaligned, pts, origin)
+    vp, gp = gridops.grid_eval_grad_detached_plain(data, pts, origin)
+    torch.cuda.synchronize()
+    rel_v = max(float((v - vp).abs().max() / vp.abs().max()) for v in (vk, vs))
+    rel_g = max(float((g - gp).abs().max() / gp.abs().max()) for g in (gk, gs))
+    n = pts.shape[0]
+    t_ops = n * GRID_EVAL_OPS_PER_POINT / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (n * GRID_EVAL_BYTES_PER_POINT + data.numel() * 4 + 12) / PEAK_BYTES_PER_S * 1e3
+    # tolerance: the kernel and torch.sum add the 64 weighted taps in
+    # different orders; the difference is rounding (relative to the output's
+    # scale)
+    if not (rel_v <= 1e-5 and rel_g <= 1e-5):
+        raise AssertionError(f"grid-evaluation kernel disagrees with its plain version: "
+                             f"relative {rel_v} (value), {rel_g} (gradient)")
+    return {
+        "points": n, "grid_res": data.shape[0], "max_rel_diff_value": rel_v, "max_rel_diff_grad": rel_g,
+        "max_abs_diff": max(float((a - b).abs().max()) for a, b in ((vk, vp), (vs, vp), (gk, gp), (gs, gp))),
+        "ms": cuda_ms(lambda: gridops._grid_eval_grad_kernel(data, pts, origin)),
+        # the same kernel on a copy of the grid 4 bytes off 16-byte alignment,
+        # where it reads every row with scalar loads
+        "ms_scalar_rows": cuda_ms(lambda: gridops._grid_eval_grad_kernel(misaligned, pts, origin)),
+        "plain_ms": cuda_ms(lambda: gridops.grid_eval_grad_detached_plain(data, pts, origin)),
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def path_ray_sets(device):
+    """K1's four ray sets on the main path's shapes, as ``(name, sdf, o, d,
+    params, lanes_kw, surface)``: the camera rays of
+    :func:`primal_chunk_rays` and the shadow rays from their hits (an active
+    mask, no refinement: the occlusion query of a primal render), each at a
+    64^3 grid and at the 128^3 target.  ``surface`` is the surface
+    interaction of the camera rays that a shadow set starts from (None for a
+    camera set)."""
+    import dataclasses
+
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops.interaction import compute_surface_interaction
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
+    from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace_plain
+
+    o, d, uni, params = primal_chunk_rays(device)
+    ds_d = scene_rig_full("bunny", device=device)["emitter"].sample_direction(uni[:, 2:4])[0]
+    occlusion = dataclasses.replace(params, refine_intersection=False)
+    for res in (64, 128):
+        sdf = GridSDF.create(target_sdf("bunny", res, device=device))
+        yield f"camera_{res}", sdf, o, d, params, {}, None
+        si = compute_surface_interaction(sdf, o, d, sphere_trace_plain(sdf, o, d, params), differentiable=False)
+        yield f"shadow_{res}", sdf, si.p + ds_d * 1e-3, ds_d, occlusion, {"active": si.valid}, si
+
+
+def grid_eval_point_sets(sdf, path_pts, hits):
+    """K2's three point sets on the grid of ``sdf``: (a) ``path_order``, the
+    points that compute_surface_interaction hands it on the camera chunk, in
+    lane order (misses sit at the camera); (b) ``random``, 2^21 points near
+    the surface: the ``hits`` resampled in random order and jittered by up to
+    half a voxel (the headline); (c) ``morton``, the points of (b) sorted by
+    the Morton code of their voxel."""
+    import torch
+
+    device = hits.device
+    gen = torch.Generator(device=device).manual_seed(0)
+    n = 1 << 21
+    idx = torch.randint(0, hits.shape[0], (n,), device=device, generator=gen)
+    pts = hits[idx] + (torch.rand(n, 3, device=device, generator=gen) - 0.5) / 64
+    return {
+        "path_order": path_pts.contiguous(),
+        "random": pts,
+        "morton": pts[morton_order(pts, sdf.p, sdf.data.shape[0])].contiguous(),
     }
 
 
 def phase_trace_kernels(device):
     """K1 (csrc/sphere_trace.cu) and K2 (csrc/grid_eval.cu) against their
     plain versions at the path's shapes."""
-    import dataclasses
-
     import torch
 
-    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
-    from differentiable_sdf_rendering_tpu_torch.ops import grid as gridops
-    from differentiable_sdf_rendering_tpu_torch.ops.interaction import compute_surface_interaction
-    from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF, SphereSDF
-    from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace, sphere_trace_plain
-
-    o, d, uni, params = primal_chunk_rays(device)
-    emitter = scene_rig_full("bunny", device=device)["emitter"]
-    occlusion = dataclasses.replace(params, refine_intersection=False)
     trace = {}
     with torch.no_grad():
-        for res in (64, 128):
-            sdf = GridSDF.create(target_sdf("bunny", res, device=device))
-            trace[f"camera_{res}"] = trace_case(sdf, o, d, params, {})
-            # the shadow rays of the same lanes: finite-hit origins, an
-            # active mask, no refinement (the occlusion query of a primal render)
-            si = compute_surface_interaction(sdf, o, d, sphere_trace_plain(sdf, o, d, params), differentiable=False)
-            ds_d = emitter.sample_direction(uni[:, 2:4])[0]
-            trace[f"shadow_{res}"] = trace_case(sdf, si.p + ds_d * 1e-3, ds_d, occlusion, {"active": si.valid})
-            if res == 64:
-                hits = si.p[si.valid]
-                grid64 = sdf
+        for name, sdf, o, d, params, lanes_kw, si in path_ray_sets(device):
+            trace[name] = trace_case(sdf, o, d, params, lanes_kw)
+            if name == "shadow_64":
+                # K2's inputs below: the camera rays' surface points at 64^3
+                path_pts, hits, grid64 = si.p, si.p[si.valid], sdf
         for name, case in trace.items():
             if not (case["hit_bits_differ_share"] <= 1e-3 and case["max_abs_dits_t_both_hit"] <= 1e-5):
                 raise AssertionError(f"sphere-trace kernel disagrees with its plain version ({name}): {case}")
-        # an analytic SDF on the card has no kernel: it must raise, not fall
-        # back to the plain version
-        try:
-            sphere_trace(SphereSDF.create(device=device), o[:8], d[:8], params)
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError("the CUDA sphere tracer accepted an analytic SDF")
 
-        # K2 at 2^21 points near the surface: the hits above, resampled and
-        # jittered by up to half a voxel
-        gen = torch.Generator(device=device).manual_seed(0)
-        n = 1 << 21
-        idx = torch.randint(0, hits.shape[0], (n,), device=device, generator=gen)
-        pts = hits[idx] + (torch.rand(n, 3, device=device, generator=gen) - 0.5) / 64
-        data, origin = grid64.data, grid64.p
-        vk, gk = gridops.grid_eval_grad_detached(data, pts, origin)
-        vp, gp = gridops.grid_eval_grad_detached_plain(data, pts, origin)
-        torch.cuda.synchronize()
-        rel_v = float((vk - vp).abs().max() / vp.abs().max())
-        rel_g = float((gk - gp).abs().max() / gp.abs().max())
-        max_abs = max(float((vk - vp).abs().max()), float((gk - gp).abs().max()))
-        # tolerance: the kernel sums the 64 taps in sequence, torch.sum as a
-        # tree; the weights are bit-equal, so the difference is rounding
-        # (relative to the output's scale)
-        if not (rel_v <= 1e-5 and rel_g <= 1e-5):
-            raise AssertionError(f"grid-evaluation kernel disagrees with its plain version: "
-                                 f"relative {rel_v} (value), {rel_g} (gradient)")
-        t_ops = n * GRID_EVAL_OPS_PER_POINT / PEAK_FP32_FLOPS * 1e3
-        t_bytes = (n * GRID_EVAL_BYTES_PER_POINT + data.numel() * 4 + 12) / PEAK_BYTES_PER_S * 1e3
-        grid_eval = {
-            "points": n, "grid_res": data.shape[0], "max_rel_diff_value": rel_v, "max_rel_diff_grad": rel_g,
-            "max_abs_diff": max_abs,
-            "ms": cuda_ms(lambda: gridops._grid_eval_grad_kernel(data, pts, origin)),
-            "plain_ms": cuda_ms(lambda: gridops.grid_eval_grad_detached_plain(data, pts, origin)),
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
+        grid_eval = {name: grid_eval_case(grid64.data, grid64.p, pts)
+                     for name, pts in grid_eval_point_sets(grid64, path_pts, hits).items()}
     emit({"phase": "kernels", "sphere_trace": trace, "grid_eval_grad": grid_eval})
     return trace, grid_eval
 
@@ -545,7 +732,21 @@ def phase_cli(device):
     return optimize_counts, turntable_counts
 
 
-def main():
+def phase_launch_count(device):
+    """CUDA launches of one ``sphere_trace`` call on the camera chunk at 64^3
+    (the kernel and the fill of its ray counter)."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
+
+    name, sdf, o, d, params, lanes_kw, _ = next(path_ray_sets(device))
+    with torch.no_grad():
+        launches = cuda_launches_per_call(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw))
+    emit({"phase": "launch_count", "set": name, "sphere_trace_cuda_launches_per_call": launches})
+    return launches
+
+
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
@@ -567,9 +768,15 @@ def main():
 
     max_err, by_res = phase_kernels(device)
     trace, grid_eval = phase_trace_kernels(device)
+    if argv == ["--kernels-only"]:
+        return 0
+    if argv:
+        raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
+    sphere = sphere_case(device)
     phase_reference(device)
     train_counts = phase_train(device)
     optimize_counts, turntable_counts = phase_cli(device)
+    k1_launches = phase_launch_count(device)
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
@@ -579,6 +786,7 @@ def main():
     # of these functions, so ``library_ms`` is null.
     main_res = by_res[64]
     k1 = trace["camera_64"]
+    k2 = grid_eval["random"]
     emit({"kernels": [
         {
             "name": "redistance", "route": "cuda",
@@ -596,11 +804,14 @@ def main():
             "replaces": "scripts/trace_probe_r3.py:360",
             "launches": train_counts["sphere_trace"],
             "cli_launches": optimize_counts["sphere_trace"] + turntable_counts["sphere_trace"],
-            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in trace.values()),
-            "hit_bits_differ_share": max(c["hit_bits_differ_share"] for c in trace.values()),
+            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*trace.values(), sphere]),
+            "hit_bits_differ_share": max(c["hit_bits_differ_share"] for c in [*trace.values(), sphere]),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "wrapper_ms": k1["wrapper_ms"],
+            "wrapper_cuda_launches": k1_launches,
             "shape": f"{k1['rays']} camera rays of a bunny view (128^2 film, 256 spp), 64^3 fp32 grid",
+            "sets": {name: {key: c[key] for key in ("ms", "wrapper_ms", "bound_ms", "bound_by")}
+                     for name, c in {**trace, "analytic_sphere": sphere}.items()},
         },
         {
             "name": "grid_eval_grad", "route": "cuda",
@@ -610,10 +821,12 @@ def main():
                               "scripts/gather_probe.py:262"],
             "launches": train_counts["grid_eval_grad"],
             "cli_launches": optimize_counts["grid_eval_grad"] + turntable_counts["grid_eval_grad"],
-            "max_abs_err": grid_eval["max_abs_diff"],
-            "ms": grid_eval["ms"], "plain_ms": grid_eval["plain_ms"], "bound_ms": grid_eval["bound_ms"],
-            "bound_by": grid_eval["bound_by"], "library_ms": None,
-            "shape": f"{grid_eval['points']} points near the surface, 64^3 fp32 grid",
+            "max_abs_err": max(c["max_abs_diff"] for c in grid_eval.values()),
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"], "library_ms": None,
+            "shape": f"{k2['points']} points near the surface in random order, 64^3 fp32 grid",
+            "sets": {name: {key: c[key] for key in ("points", "ms", "bound_ms", "bound_by")}
+                     for name, c in grid_eval.items()},
         },
     ]})
     print(smi, flush=True)
@@ -623,4 +836,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,45 +1,73 @@
-// Sphere tracing of rays against a cubic B-spline SDF grid, with the
-// decreasing-rate intersection refinement: one thread per ray, the whole
-// loop inside the kernel.
+// Sphere tracing of rays against an SDF (a cubic B-spline grid, or the
+// analytic sphere), with the decreasing-rate intersection refinement: the
+// ray setup, the whole loop and the refinement inside one kernel of
+// persistent blocks whose lanes take a new ray whenever theirs ends.
 //
 // Replaces, for the port, the in-kernel trace loop that the JAX package
 // explored in the Pallas probe scripts/trace_probe_r3.py::probe_pallas.run
-// (the whole sphere-trace loop in one program) together with the per-lane
-// tap gathers of probe_pgather, probe_pdma.run and
-// scripts/gather_probe.py::dyn_gather / dma_rows.  The JAX package itself
-// traces with an XLA while-loop (ops/trace.py::sphere_trace + _refine); the
-// port's plain version of this kernel is ops/trace.py::sphere_trace_plain,
-// a masked Python loop that costs dozens of launches a step.
+// (:360; the whole sphere-trace loop in one program, on an analytic sphere:
+// sdf_kind 1 below traces the same sphere) together with the per-lane tap
+// gathers of probe_pgather, probe_pdma.run and scripts/gather_probe.py::
+// dyn_gather / dma_rows.  The JAX package itself traces with an XLA
+// while-loop (ops/trace.py::sphere_trace + _refine); the port's plain
+// version of this kernel is ops/trace.py::sphere_trace_plain, a masked
+// Python loop that costs dozens of launches a step.
 //
-// Per ray (already normalised and clipped to the grid's expanded bounding
-// box by the wrapper, which passes t0, maxt and trace_eps per lane):
-//   loop up to max_steps: f = value(o + t d - origin) * step_scale;
-//     hit when f < trace_eps (its_t = t); else t += |f|; stop when t > maxt;
-//   then, for hit lanes with refine_active, up to refine_steps:
-//     t += f * (10 / (10 + i)) until 0 < f <= trace_eps.
+// Per ray i, as ops/trace.py::_ray_setup and the plain loops compute it:
+//   d = normalize(d); clip to the SDF's bbox expanded by bbox_expand (the
+//   box computed here from the SDF's device parameters, as SDF.bbox does);
+//   t0 = 0 inside the box, else entry + 1e-5; maxt = min(exit, maxt);
+//   eps = trace_eps * max(maxt, 1); traced only when active & hit;
+//   loop up to max_steps: f = sdf(o + t d) * step_scale;
+//     hit when f < eps (its_t = t); else t += |f|; stop when t > maxt;
+//   then, for hit rays with refine_active, up to refine_steps:
+//     t += f * (10 / (10 + s)) until 0 < f <= eps.
 //
-// What bounds it: each step is one 64-tap evaluation, 230 flops in the
-// fewest-operation (separable) order (counted in chip_smoke.py), and 64 tap
-// reads that hit L1/L2 (the grid is 1 MiB at 64^3, 8 MiB at 128^3); per ray
-// the kernel reads 38 bytes and writes 8.  On the path's camera chunk (1.1 M
-// rays of a bunny view at 128^2, 256 spp; most rays miss the box or leave it
-// in a few steps: 4.4 evaluations a ray on average, refinement included, 192
-// at most) the bound is 0.017 ms (operations, about tied with 0.016 ms of
-// bytes) and the kernel takes 0.45-0.53 ms on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py, PERF.md), 27-32x the bound: a warp runs as long as its
-// longest ray, and a few grazing rays that creep along the surface for all
-// 192 steps hold their warps (the shadow rays of the same chunk: 1.1
-// evaluations a ray on average, 0.62-0.69 ms against a bytes bound of 0.016
-// ms).  One thread per ray is enough for a first version: the plain version
-// takes 250-500 ms on the same rays, because it is bound by the host's launch
-// rate.  Persistent threads with ray compaction, ray sorting and
-// shared-memory bricks are later work.
+// What bounds it, on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md
+// has every number, with those of PR 4's tuning builds).  The work is
+// small: on the path's camera chunk (1.1 M rays of a bunny view at 128^2,
+// 256 spp; 92 % miss the box) 4.9 M evaluations, 230 flops each in the
+// separable order, 0.017 ms at 67 TFLOP/s; the bytes (rays in, its_t out)
+// are less.  On the shadow rays (a quarter of the evaluations: 0.010 ms at
+// 64^3, 0.012 ms at 128^3) and the analytic sphere (0.0022 ms) the bytes
+// bound it.  The first version (one thread a ray, the setup in ~15 PyTorch
+// launches around it) took 0.47 ms there and 0.64 ms on the shadow rays of
+// the same lanes, which do a quarter of the evaluations: a block held its
+// SM slot until its slowest ray ended.  This version:
+//   * persistent blocks, refilled per lane: as many blocks as are resident;
+//     a warp claims rays 32 at a time from a global counter (lane 0 claims
+//     one chunk ahead, so the atomic's latency is spent tracing), and once
+//     kRefillMin of its lanes are idle it refills them in rounds in which
+//     all 32 lanes set up one candidate each and the idle lanes take the
+//     traced ones through shuffles (92 % of camera rays miss the box: a
+//     round sets up 32 of them at once);
+//   * a short step: the separable contraction of tricubic.cuh, the 64 taps
+//     of the last window kept in registers (a step that stays in its base
+//     voxel reads no memory), a reload's 64 loads issued together, at fixed
+//     strides from the window's first voxel when no tap is clamped;
+//   * the ray setup in the kernel: scalar maxt / active / refine_active come
+//     as values, per-lane ones with a stride, so a call is this launch and
+//     the 4-byte fill of the counter.
+// Measured: 0.31-0.39 ms on the camera sets and 0.22-0.33 ms on the shadow
+// sets, still 18-27x the bound.  What holds it back is the tap gather, not
+// divergence: 85 % of a warp's lanes are busy on the camera rays, but 81 %
+// of their steps leave their base voxel and reload 64 taps that lanes on
+// other rays do not share, and a step costs about 2,000 cycles.  Wider row
+// loads were slower here (PERF.md); a bricked copy of the grid or
+// warp-cooperative evaluation are the next candidates.
 //
-// Rounding: compiled with -fmad=false; x = o + t*d, the weights and the step
-// updates use the plain version's operation order (the refinement rate is
-// (1 / (10 + i)) * 10, as PyTorch evaluates 10.0 / tensor).  Only the order
-// of the 64-term sum differs, so a lane whose f lands within rounding of
-// trace_eps may stop one step earlier or later than the plain version.
+// Scheduling does not change results: a ray's outputs depend on its own
+// inputs only, so two launches on the same rays are bit-identical
+// (chip_smoke.py checks it).
+//
+// Rounding: compiled with FMA contraction (kernels.FMAD), measured 5-15 %
+// faster than -fmad=false (PERF.md, PR 4), with hit bits still equal to
+// the plain version's and its_t within 6e-6 on the path's rays.  The setup
+// and the step updates follow the plain version's operation order (the
+// refinement rate is (1 / (10 + s)) * 10, as PyTorch evaluates 10.0 /
+// tensor), but products and sums are contracted and the SDF value is summed
+// in the separable order, so a ray whose f lands within rounding of eps may
+// stop one step earlier or later than in the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,83 +78,360 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kAllLanes = 0xffffffffu;
+// Idle lanes of a warp that start a refill.  Measured on the path's camera
+// and shadow rays at 64^3 (PERF.md, PR 4): 4 was slower on both, 16 no
+// faster, 32 faster on the camera rays but half again slower on the shadow
+// rays; 8 is the best on both together.
+constexpr int kRefillMin = 8;
+// Rays a warp claims with one atomicAdd: one per lane.  Claims of 64 and 128
+// rays were slower on the camera rays (PERF.md, PR 4).
+constexpr unsigned kChunk = 32;
+// Resident blocks an SM must fit, which sets the register budget (168
+// registers).  2 blocks were slower on the camera rays, 4 on the shadow
+// rays (PERF.md, PR 4).
+constexpr int kMinBlocks = 3;
+static_assert(kRefillMin >= 1 && kRefillMin <= 32, "a refill threshold is within a warp");
+static_assert(kChunk >= 32, "a claim must cover a warp's candidates");
 
-__global__ void sphere_trace_kernel(tricubic::Grid g, const float* __restrict__ origin,
-                                    const float* __restrict__ o, const float* __restrict__ d,
-                                    const float* __restrict__ t0, const float* __restrict__ maxt,
-                                    const float* __restrict__ trace_eps,
-                                    const uint8_t* __restrict__ active,
-                                    const uint8_t* __restrict__ refine_active, float step_scale,
-                                    int max_steps, int refine_steps, float* __restrict__ its_t,
-                                    int* __restrict__ num_steps, long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float gx = __ldg(origin + 0), gy = __ldg(origin + 1), gz = __ldg(origin + 2);
-    const float ox = o[3 * i + 0], oy = o[3 * i + 1], oz = o[3 * i + 2];
-    const float dx = d[3 * i + 0], dy = d[3 * i + 1], dz = d[3 * i + 2];
-    const float eps = trace_eps[i];
-    const float tmax = maxt[i];
+// Cubic B-spline grid translated by origin; the box is [origin, origin + 1].
+struct GridSdf {
+    using Cache = tricubic::TapCache;
+    tricubic::Grid g;
+    const float* origin;
+    float ox, oy, oz;
 
-    float t = t0[i];
-    float its = INFINITY;
-    int steps = 0;
-    if (active[i]) {
-        for (int s = 0; s < max_steps; ++s) {
-            const float px = (ox + t * dx) - gx;
-            const float py = (oy + t * dy) - gy;
-            const float pz = (oz + t * dz) - gz;
-            const float f = tricubic::value(g, px, py, pz) * step_scale;
-            steps = s + 1;
-            if (f < eps) {
-                its = t;
-                break;
+    __device__ void load() {
+        ox = __ldg(origin + 0);
+        oy = __ldg(origin + 1);
+        oz = __ldg(origin + 2);
+    }
+    __device__ void bbox(float expand, float lo[3], float hi[3]) const {
+        const float p[3] = {ox, oy, oz};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            lo[k] = p[k] - expand;
+            hi[k] = (p[k] + 1.0f) + expand;
+        }
+    }
+    __device__ void clear(Cache& c) const { tricubic::clear(c); }
+    __device__ float eval(float x, float y, float z, Cache& c) const {
+        return tricubic::value_cached(g, x - ox, y - oy, z - oz, c);
+    }
+};
+
+// Analytic sphere |x - center| - radius; the box is center -+ 0.5.
+struct SphereSdf {
+    struct Cache {};
+    const float* center;
+    const float* radius;
+    float cx, cy, cz, r;
+
+    __device__ void load() {
+        cx = __ldg(center + 0);
+        cy = __ldg(center + 1);
+        cz = __ldg(center + 2);
+        r = __ldg(radius);
+    }
+    __device__ void bbox(float expand, float lo[3], float hi[3]) const {
+        const float p[3] = {cx, cy, cz};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            lo[k] = (p[k] - 0.5f) - expand;
+            hi[k] = (p[k] + 0.5f) + expand;
+        }
+    }
+    __device__ void clear(Cache&) const {}
+    __device__ float eval(float x, float y, float z, Cache&) const {
+        const float dx = x - cx, dy = y - cy, dz = z - cz;
+        return sqrtf((dx * dx + dy * dy) + dz * dz) - r;
+    }
+};
+
+// The rays' operands.  Lane i of a per-lane operand is at ptr[i * stride];
+// a stride of 0 broadcasts one value.  A null maxt / active / refine
+// pointer means the scalar beside it holds for every lane.
+struct Rays {
+    const float* o;
+    long long o_stride;
+    const float* d;
+    long long d_stride;
+    const float* maxt;
+    long long maxt_stride;
+    float maxt_value;
+    const uint8_t* active;
+    long long active_stride;
+    int active_value;
+    const uint8_t* refine;
+    long long refine_stride;
+    int refine_value;
+};
+
+struct Params {
+    float bbox_expand, trace_eps, step_scale;
+    int max_steps, refine_steps;
+};
+
+// A ray's inputs as the caller passed them.
+struct RayInput {
+    float ox, oy, oz, dx, dy, dz, maxt;
+    bool active, refine;
+};
+
+// A ray being traced: what _ray_setup gives it, and where its loop stands.
+struct Ray {
+    float ox, oy, oz, dx, dy, dz;
+    float t, maxt, eps;
+    int steps;   // evaluations of the trace loop
+    int refine;  // -1 while tracing, else refinement steps taken
+    int refine_ok;
+};
+
+__device__ __forceinline__ void load_ray(const Rays& rays, long long i, RayInput& in) {
+    const float* o = rays.o + i * rays.o_stride;
+    const float* d = rays.d + i * rays.d_stride;
+    in.ox = o[0];
+    in.oy = o[1];
+    in.oz = o[2];
+    in.dx = d[0];
+    in.dy = d[1];
+    in.dz = d[2];
+    in.maxt = rays.maxt ? rays.maxt[i * rays.maxt_stride] : rays.maxt_value;
+    in.active = rays.active ? rays.active[i * rays.active_stride] != 0 : rays.active_value != 0;
+    in.refine = rays.refine ? rays.refine[i * rays.refine_stride] != 0 : rays.refine_value != 0;
+}
+
+// The setup of ops/trace.py::_ray_setup, in its operation order.  Returns
+// false when the ray is not traced (inactive, or it misses the box within
+// its extent).
+template <class Sdf>
+__device__ bool setup_ray(const Sdf& sdf, const Params& prm, const RayInput& in, Ray& ray) {
+    const float o3[3] = {in.ox, in.oy, in.oz};
+    float d3[3] = {in.dx, in.dy, in.dz};
+    const float norm = sqrtf(fmaxf((d3[0] * d3[0] + d3[1] * d3[1]) + d3[2] * d3[2], 1e-30f));
+    float lo[3], hi[3];
+    sdf.bbox(prm.bbox_expand, lo, hi);
+    float mint = -INFINITY, tmax = INFINITY;
+    bool inside = true;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        d3[k] = d3[k] / norm;
+        const float tiny = d3[k] >= 0.0f ? 1e-12f : -1e-12f;
+        const float safe = fabsf(d3[k]) < 1e-12f ? tiny : d3[k];
+        const float inv = 1.0f / safe;
+        const float t0 = (lo[k] - o3[k]) * inv;
+        const float t1 = (hi[k] - o3[k]) * inv;
+        mint = fmaxf(mint, fminf(t0, t1));
+        tmax = fminf(tmax, fmaxf(t0, t1));
+        inside = inside && o3[k] >= lo[k] && o3[k] <= hi[k];
+    }
+    const bool hit = tmax >= mint && tmax > 0.0f && (mint > 0.0f || inside) && mint <= in.maxt;
+    if (!(in.active && hit)) return false;
+    ray.ox = o3[0];
+    ray.oy = o3[1];
+    ray.oz = o3[2];
+    ray.dx = d3[0];
+    ray.dy = d3[1];
+    ray.dz = d3[2];
+    ray.maxt = fminf(tmax, in.maxt);
+    ray.eps = prm.trace_eps * fmaxf(ray.maxt, 1.0f);
+    ray.t = inside ? 0.0f : mint + 1e-5f;
+    ray.steps = 0;
+    ray.refine = -1;
+    ray.refine_ok = prm.refine_steps > 0 && in.refine;
+    return true;
+}
+
+// One evaluation of the ray's trace or refinement.  Returns 0 while the ray
+// goes on, 1 when it has ended on the surface (its_t = ray.t), 2 when it has
+// missed (its_t = inf).
+template <class Sdf>
+__device__ int advance(const Sdf& sdf, const Params& prm, Ray& ray, typename Sdf::Cache& cache) {
+    const float f = sdf.eval(ray.ox + ray.t * ray.dx, ray.oy + ray.t * ray.dy, ray.oz + ray.t * ray.dz, cache) *
+                    prm.step_scale;
+    if (ray.refine < 0) {
+        ray.steps += 1;
+        if (f < ray.eps) {
+            if (!ray.refine_ok) return 1;
+            ray.refine = 0;  // refine from this t
+            return 0;
+        }
+        ray.t = ray.t + fabsf(f);
+        return (!(ray.t <= ray.maxt) || ray.steps >= prm.max_steps) ? 2 : 0;
+    }
+    const float rate = (1.0f / (10.0f + (float)ray.refine)) * 10.0f;
+    ray.t = ray.t + f * rate;
+    ray.refine += 1;
+    return (!(f <= 0.0f || f > ray.eps) || ray.refine >= prm.refine_steps) ? 1 : 0;
+}
+
+// Position of the k-th (from 0) set bit of m; m has more than k bits set.
+__device__ __forceinline__ int nth_set_bit(unsigned m, unsigned k) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) {
+        const unsigned low = __popc(m & ((1u << w) - 1u));
+        if (k >= low) {
+            k -= low;
+            m >>= w;
+            pos += w;
+        }
+    }
+    return pos;
+}
+
+__device__ __forceinline__ float shfl(float v, int src) { return __shfl_sync(kAllLanes, v, src); }
+__device__ __forceinline__ int shfl(int v, int src) { return __shfl_sync(kAllLanes, v, src); }
+
+template <class Sdf>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sphere_trace_kernel(Sdf sdf, Rays rays, Params prm, float* __restrict__ its_t, int* __restrict__ num_steps,
+                    unsigned* __restrict__ next_ray, unsigned n) {
+    sdf.load();
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned lanes_below = (1u << lane) - 1u;
+    typename Sdf::Cache cache;
+    sdf.clear(cache);
+    Ray ray;
+    int id = -1;              // this lane's ray, -1 = idle
+    unsigned lo = 0, hi = 0;  // warp-uniform: the claimed rays [lo, hi) not yet examined
+    bool drained = false;     // warp-uniform: a claim came back empty
+    // lane 0 claims each chunk one chunk ahead, so that the atomic's
+    // latency is spent while the warp traces
+    unsigned ahead = 0;
+    if (lane == 0) ahead = atomicAdd(next_ray, kChunk);
+    for (;;) {
+        unsigned idle = __ballot_sync(kAllLanes, id < 0);
+        if (drained && idle == kAllLanes) break;
+        if (!drained && __popc(idle) >= kRefillMin) {
+            // Refill rounds until every lane has a ray or the rays run out.
+            // In a round all 32 lanes set up one candidate each (the next 32
+            // claimed rays), the idle lanes take the traced ones in order
+            // through shuffles, and the candidates up to the last one taken
+            // are consumed: those not traced are written at once; traced
+            // ones beyond it stay claimed for the next round.
+            do {
+                if (lo == hi) {
+                    const unsigned base = __shfl_sync(kAllLanes, ahead, 0);
+                    if (lane == 0) ahead = atomicAdd(next_ray, kChunk);
+                    lo = min(base, n);
+                    hi = min(base + kChunk, n);
+                    if (lo == hi) {
+                        drained = true;
+                        break;
+                    }
+                }
+                const unsigned cand = lo + lane;
+                RayInput in;
+                Ray c{};  // what an idle lane takes from the lane that set it up
+                bool traced = false;
+                if (cand < hi) {
+                    load_ray(rays, cand, in);
+                    traced = setup_ray(sdf, prm, in, c);
+                }
+                const unsigned traced_lanes = __ballot_sync(kAllLanes, traced);
+                const unsigned need = __popc(idle), found = __popc(traced_lanes);
+                const unsigned consumed =
+                    found > need ? nth_set_bit(traced_lanes, need - 1) + 1 : min(32u, hi - lo);
+                if (lane < consumed && !traced) {
+                    its_t[cand] = INFINITY;
+                    num_steps[cand] = 0;
+                }
+                // the idle lane of rank k takes the k-th traced candidate
+                const unsigned rank = __popc(idle & lanes_below);
+                const bool take = id < 0 && rank < found;
+                const int src = take ? nth_set_bit(traced_lanes, rank) : (int)lane;
+                const float ox = shfl(c.ox, src), oy = shfl(c.oy, src), oz = shfl(c.oz, src);
+                const float dx = shfl(c.dx, src), dy = shfl(c.dy, src), dz = shfl(c.dz, src);
+                const float t = shfl(c.t, src), maxt = shfl(c.maxt, src), eps = shfl(c.eps, src);
+                const int refine_ok = shfl(c.refine_ok, src);
+                if (take) {
+                    ray = Ray{ox, oy, oz, dx, dy, dz, t, maxt, eps, 0, -1, refine_ok};
+                    id = (int)(lo + src);
+                }
+                lo += consumed;
+                idle = __ballot_sync(kAllLanes, id < 0);
+            } while (idle != 0);
+        }
+        // one evaluation for every lane that has a ray; a ray that ends is
+        // written
+        if (id >= 0) {
+            const int ended = advance(sdf, prm, ray, cache);
+            if (ended) {
+                its_t[id] = ended == 1 ? ray.t : INFINITY;
+                num_steps[id] = ray.steps + (ray.refine > 0 ? ray.refine : 0);
+                id = -1;
             }
-            t = t + fabsf(f);
-            if (!(t <= tmax)) break;
         }
     }
+}
 
-    int refined = 0;
-    if (isfinite(its) && refine_steps > 0 && refine_active[i]) {
-        float tr = its;
-        for (int s = 0; s < refine_steps; ++s) {
-            const float px = (ox + tr * dx) - gx;
-            const float py = (oy + tr * dy) - gy;
-            const float pz = (oz + tr * dz) - gz;
-            const float f = tricubic::value(g, px, py, pz) * step_scale;
-            const float rate = (1.0f / (10.0f + (float)s)) * 10.0f;
-            tr = tr + f * rate;
-            refined = s + 1;
-            if (!(f <= 0.0f || f > eps)) break;  // converged into (0, eps]
-        }
-        its = tr;
+constexpr int kMaxDevices = 64;
+
+// Blocks of this kernel that are resident on the whole card at once,
+// computed once per device.
+template <class Sdf>
+int resident_blocks() {
+    static int cached[kMaxDevices] = {0};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= kMaxDevices) return 0;
+    if (cached[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sphere_trace_kernel<Sdf>, kThreads, 0);
+        cached[dev] = sms * per_sm;
     }
-    its_t[i] = its;
-    num_steps[i] = steps + refined;
+    return cached[dev];
+}
+
+template <class Sdf>
+int launch(const Sdf& sdf, const Rays& rays, const Params& prm, void* its_t, void* num_steps, void* next_ray,
+           unsigned n, cudaStream_t stream) {
+    const int resident = resident_blocks<Sdf>();
+    if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+    const long long needed = ((long long)n + kThreads - 1) / kThreads;
+    const unsigned blocks = (unsigned)(needed < resident ? needed : resident);
+    sphere_trace_kernel<Sdf><<<blocks, kThreads, 0, stream>>>(sdf, rays, prm, (float*)its_t, (int*)num_steps,
+                                                             (unsigned*)next_ray, n);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Traces n rays.  o, d: (n, 3) float32 (d normalised); t0, maxt, trace_eps:
-// (n,) float32; active, refine_active: (n,) uint8; grid: (zres, yres, xres)
-// float32 contiguous; origin: 3 floats on the device (the grid's
-// translation).  refine_steps = 0 skips the refinement.  Writes its_t (inf =
-// miss) and num_steps (grid evaluations of the trace loop and the
-// refinement together).  One launch on `stream`; nothing is allocated and nothing
-// synchronises.  Returns cudaGetLastError() after the launch (0 = success).
-extern "C" int sphere_trace_run(const void* grid, int xres, int yres, int zres,
-                                const void* origin, const void* o, const void* d,
-                                const void* t0, const void* maxt, const void* trace_eps,
-                                const void* active, const void* refine_active, float step_scale,
-                                int max_steps, int refine_steps, void* its_t, void* num_steps,
-                                long long n, void* stream) {
+// Traces n rays (n < 2^31).  sdf_kind 0: the grid (zres, yres, xres) float32
+// contiguous, translated by p (3 floats on the device); sdf_kind 1: the
+// sphere of centre p (3 floats) and radius r (1 float), both on the device.
+// o, d: float32 rows of 3 with lane strides o_stride, d_stride (elements;
+// 0 broadcasts); maxt (float32), active and refine (uint8 or bool): per-lane
+// with the given stride, or null for the scalar beside them.  next_ray: one
+// unsigned int on the device, zero before the launch.  refine_steps = 0
+// skips the refinement.  Writes its_t (inf = miss) and num_steps
+// (evaluations of the trace loop and the refinement together).  One launch
+// on `stream`; nothing is allocated and nothing synchronises.  Returns
+// cudaGetLastError() after the launch (0 = success).
+extern "C" int sphere_trace_run(int sdf_kind, const void* grid, int xres, int yres, int zres, const void* p,
+                                const void* r, const void* o, long long o_stride, const void* d,
+                                long long d_stride, const void* maxt, long long maxt_stride, float maxt_value,
+                                const void* active, long long active_stride, int active_value,
+                                const void* refine, long long refine_stride, int refine_value,
+                                float bbox_expand, float trace_eps, float step_scale, int max_steps,
+                                int refine_steps, void* its_t, void* num_steps, void* next_ray, long long n,
+                                void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
-    const tricubic::Grid g{(const float*)grid, xres, yres, zres};
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    sphere_trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        g, (const float*)origin, (const float*)o, (const float*)d, (const float*)t0,
-        (const float*)maxt, (const float*)trace_eps, (const uint8_t*)active,
-        (const uint8_t*)refine_active, step_scale, max_steps, refine_steps, (float*)its_t,
-        (int*)num_steps, n);
-    return (int)cudaGetLastError();
+    if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    const Rays rays{(const float*)o, o_stride, (const float*)d, d_stride,
+                    (const float*)maxt, maxt_stride, maxt_value,
+                    (const uint8_t*)active, active_stride, active_value,
+                    (const uint8_t*)refine, refine_stride, refine_value};
+    const Params prm{bbox_expand, trace_eps, step_scale, max_steps, refine_steps};
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (sdf_kind == 1) {
+        const SphereSdf sdf{(const float*)p, (const float*)r, 0.0f, 0.0f, 0.0f, 0.0f};
+        return launch(sdf, rays, prm, its_t, num_steps, next_ray, (unsigned)n, s);
+    }
+    if (sdf_kind != 0) return (int)cudaErrorInvalidValue;
+    const GridSdf sdf{{(const float*)grid, xres, yres, zres}, (const float*)p, 0.0f, 0.0f, 0.0f};
+    return launch(sdf, rays, prm, its_t, num_steps, next_ray, (unsigned)n, s);
 }
+

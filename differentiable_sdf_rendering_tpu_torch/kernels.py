@@ -21,17 +21,20 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["SOURCES", "build_dir", "library", "build_all", "NVCC_FLAGS"]
+__all__ = ["SOURCES", "FMAD", "build_dir", "library", "build_all", "NVCC_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 
-# -fmad=false: the kernels round like their plain PyTorch versions (no FMA
-# contraction); see csrc/redistance.cu and csrc/tricubic.cuh.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC",
 )
+# FMA contraction (-fmad) per source.  Off where a kernel must round like its
+# plain PyTorch version: the redistancing kernel equals it bit for bit, and
+# the grid evaluation measured no faster with it.  On for the sphere trace,
+# which it makes faster within the trace's limits (csrc/sphere_trace.cu).
+FMAD = {"redistance": False, "sphere_trace": True, "grid_eval": False}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -46,7 +49,11 @@ SOURCES = {
     "sphere_trace": {
         "sphere_trace_run": (
             _INT,
-            [_VOIDP, _INT, _INT, _INT] + [_VOIDP] * 8 + [_FLOAT, _INT, _INT] + [_VOIDP] * 2 + [_I64, _VOIDP],
+            [_INT, _VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP]  # SDF
+            + [_VOIDP, _I64, _VOIDP, _I64]  # o, d
+            + [_VOIDP, _I64, _FLOAT] + [_VOIDP, _I64, _INT] * 2  # maxt, active, refine_active
+            + [_FLOAT, _FLOAT, _FLOAT, _INT, _INT]  # bbox_expand, trace_eps, step_scale, steps
+            + [_VOIDP] * 3 + [_I64, _VOIDP],  # its_t, num_steps, ray counter, n, stream
         ),
     },
     "grid_eval": {
@@ -85,7 +92,7 @@ def _start_build(name: str, extra_flags=()):
     src, lib = _paths(name)
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-fmad={str(FMAD[name]).lower()}", *extra_flags, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, cmd, tmp, lib
 

@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from .sdf import GridSDF, TraceParams
+from .sdf import GridSDF, SphereSDF, TraceParams
 from .vecmath import (
     bbox_distance_inside_d, dot, integer_pow, nearest_axis_mask, normalize, ray_bbox_intersect,
 )
@@ -148,10 +148,11 @@ def sphere_trace(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF, acti
     occlusion-only lanes whose ``isfinite`` bit is invariant under
     refinement).
 
-    On a CUDA tensor the trace runs in ``csrc/sphere_trace.cu`` (a grid SDF
-    only: anything else raises ``NotImplementedError``); on a CPU tensor in
+    On a CUDA tensor the trace, its ray setup included, runs in
+    ``csrc/sphere_trace.cu`` (a grid or the analytic sphere: any other SDF
+    raises ``NotImplementedError``); on a CPU tensor in
     :func:`sphere_trace_plain`.  ``sphere_trace.kernel_launches`` counts the
-    kernel's launches.
+    kernel's launches (one a call).
     """
     if o.is_cuda:
         return _sphere_trace_kernel(sdf, o, d, params, maxt, active, refine_active)[0]
@@ -162,70 +163,103 @@ sphere_trace.kernel_launches = 0
 
 
 def _sphere_trace_kernel(sdf, o, d, params: TraceParams, maxt=_INF, active=True, refine_active=True):
-    """Ray setup, then the kernel.  Returns ``(its_t, num_steps)``: the
-    intersection distance and, per lane, the grid evaluations of the trace
-    loop and the refinement together."""
-    lanes, lead = _kernel_lanes(sdf, o, d, params, maxt, active, refine_active)
-    out = _launch_sphere_trace(sdf.data.detach(), sdf.p.detach(), lanes, params)
-    return tuple(x.reshape(lead) for x in out)
+    """The kernel on the operands of :func:`_kernel_operands`.  Returns
+    ``(its_t, num_steps)``: the intersection distance and, per lane, the grid
+    evaluations of the trace loop and the refinement together."""
+    operands, lead = _kernel_operands(sdf, o, d, params, maxt, active, refine_active)
+    return tuple(x.reshape(lead) for x in _launch_sphere_trace(operands, params))
 
 
-def _kernel_lanes(sdf, o, d, params: TraceParams, maxt=_INF, active=True, refine_active=True):
-    """The kernel's operands: the ray setup of :func:`_ray_setup` as flat,
-    contiguous per-lane tensors (the kernel indexes lane i directly).
-    Returns ``(lanes, leading shape)``."""
+def _lane_operand(v, lead, dtype):
+    """``(tensor, scalar)`` for one per-lane operand of the kernel: a Python
+    scalar stays a value (``tensor`` None); a tensor becomes a flat (N,) view
+    of stride 0 or 1 (copied only when no such view exists)."""
+    if not isinstance(v, torch.Tensor):
+        return None, v
+    x = v.detach().to(dtype).expand(lead).reshape(-1)
+    return (x if x.stride(0) in (0, 1) else x.contiguous()), None
+
+
+def _ray_rows(x, shape):
+    """``x`` broadcast to ``shape`` as (N, 3) rows: a view whose rows are
+    contiguous (lane stride 3) or one broadcast row (stride 0)."""
+    x = x.detach().expand(shape).reshape(-1, 3)
+    return x if x.stride(1) == 1 and x.stride(0) in (0, 3) else x.contiguous()
+
+
+def _kernel_operands(sdf, o, d, params: TraceParams, maxt=_INF, active=True, refine_active=True):
+    """What the kernel takes, prepared without a launch: the SDF's device
+    parameters (its bbox is computed from them in the kernel, as ``sdf.bbox``
+    computes it), the rays as (N, 3) views, and ``maxt`` / ``active`` /
+    ``refine_active`` each as a scalar or a flat per-lane view.  The ray
+    setup of :func:`_ray_setup` itself runs in the kernel.  Returns
+    ``(operands, leading shape)``."""
     _check_trace_params(params)
-    if not isinstance(sdf, GridSDF):
-        raise NotImplementedError(f"the CUDA sphere tracer takes a GridSDF, got {type(sdf).__name__}")
-    o = o.detach()
-    d = d.detach()
-    maxt = _lane_tensor(maxt, o, o.dtype)
-    d, _, hit, _, t0, maxt, trace_eps = _ray_setup(sdf, o, d, params, maxt)
-    lead = d.shape[:-1]
-    lanes = {
-        "o": o.expand(d.shape).reshape(-1, 3).contiguous(),
-        "d": d.reshape(-1, 3).contiguous(),
-        "t0": t0.expand(lead).reshape(-1).contiguous(),
-        "maxt": maxt.expand(lead).reshape(-1).contiguous(),
-        "trace_eps": trace_eps.expand(lead).reshape(-1).contiguous(),
-        "active": (_lane_tensor(active, d, torch.bool) & hit).reshape(-1).to(torch.uint8).contiguous(),
-        "refine_active": _lane_tensor(refine_active, d, torch.bool).reshape(-1).to(torch.uint8).contiguous(),
-    }
-    return lanes, lead
+    if isinstance(sdf, GridSDF):
+        data = sdf.data.detach()
+        if data.ndim != 3 or data.dtype != torch.float32 or not data.is_contiguous():
+            raise ValueError(f"the CUDA sphere tracer takes a contiguous (Z, Y, X) float32 grid, got "
+                             f"{tuple(data.shape)} {data.dtype}")
+        operands = {"sdf_kind": 0, "grid": data, "p": sdf.p.detach().contiguous(), "r": None}
+    elif isinstance(sdf, SphereSDF):
+        operands = {"sdf_kind": 1, "grid": None, "p": sdf.p.detach().contiguous(), "r": sdf.r.detach()}
+        if operands["r"].shape != () or operands["r"].dtype != torch.float32:
+            raise ValueError(f"the sphere's radius must be a float32 scalar, got {operands['r']}")
+    else:
+        raise NotImplementedError(f"the CUDA sphere tracer takes a GridSDF or a SphereSDF, got "
+                                  f"{type(sdf).__name__}")
+    if operands["p"].shape != (3,) or operands["p"].dtype != torch.float32:
+        raise ValueError(f"the SDF's position must be (3,) float32, got {tuple(operands['p'].shape)} "
+                         f"{operands['p'].dtype}")
+    if o.dtype != torch.float32 or d.dtype != torch.float32:
+        raise ValueError(f"the CUDA sphere tracer takes float32 rays, got {o.dtype} and {d.dtype}")
+    shape = torch.broadcast_shapes(o.shape, d.shape)
+    lead = shape[:-1]
+    operands.update(
+        o=_ray_rows(o, shape), d=_ray_rows(d, shape),
+        maxt=_lane_operand(maxt, lead, torch.float32),
+        active=_lane_operand(active, lead, torch.bool),
+        refine_active=_lane_operand(refine_active, lead, torch.bool),
+    )
+    tensors = [operands[k] for k in ("grid", "r", "o", "d")] + [operands[k][0] for k in ("maxt", "active",
+                                                                                      "refine_active")]
+    devices = {x.device for x in tensors if x is not None}
+    if devices != {operands["p"].device}:
+        raise ValueError(f"the sphere tracer's operands must lie on one device, got {sorted(map(str, devices))}")
+    return operands, lead
 
 
-def _launch_sphere_trace(data, origin, lanes: dict, params: TraceParams):
-    """Launch ``csrc/sphere_trace.cu::sphere_trace_run`` on the current
-    stream over the flat per-lane operands ``lanes`` of :func:`_kernel_lanes`.
+def _launch_sphere_trace(operands: dict, params: TraceParams):
+    """Launch ``csrc/sphere_trace.cu::sphere_trace_run`` once on the current
+    stream over the operands of :func:`_kernel_operands`; allocates the
+    outputs and the 4-byte ray counter the kernel's lanes claim rays from.
     Returns flat ``(its_t, num_steps)``."""
     from .. import kernels
 
-    if data.ndim != 3 or data.dtype != torch.float32 or not data.is_contiguous():
-        raise ValueError(f"the CUDA sphere tracer takes a contiguous (Z, Y, X) float32 grid, got "
-                         f"{tuple(data.shape)} {data.dtype}")
-    if origin.shape != (3,) or origin.dtype != torch.float32:
-        raise ValueError(f"the grid origin must be (3,) float32, got {tuple(origin.shape)} {origin.dtype}")
-    n = lanes["t0"].shape[0]
-    for key, dtype, shape in (("o", torch.float32, (n, 3)), ("d", torch.float32, (n, 3)),
-                              ("t0", torch.float32, (n,)), ("maxt", torch.float32, (n,)),
-                              ("trace_eps", torch.float32, (n,)), ("active", torch.uint8, (n,)),
-                              ("refine_active", torch.uint8, (n,))):
-        x = lanes[key]
-        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != data.device:
-            raise ValueError(f"sphere-trace operand '{key}' must be a contiguous {shape} {dtype} on "
-                             f"{data.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
-    origin = origin.contiguous()
-    its_t = torch.empty(n, dtype=torch.float32, device=data.device)
-    num_steps = torch.empty(n, dtype=torch.int32, device=data.device)
+    o, d = operands["o"], operands["d"]
+    n = o.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"the CUDA sphere tracer takes fewer than 2^31 rays, got {n}")
+    device = o.device
+    its_t = torch.empty(n, dtype=torch.float32, device=device)
+    num_steps = torch.empty(n, dtype=torch.int32, device=device)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=device)
+    grid, p, r = operands["grid"], operands["p"], operands["r"]
+    zres, yres, xres = grid.shape if grid is not None else (0, 0, 0)
+
+    per_lane = []  # (pointer, lane stride, scalar) of maxt, active, refine_active
+    for key, scalar_type in (("maxt", ctypes.c_float), ("active", int), ("refine_active", int)):
+        x, value = operands[key]
+        per_lane += [x.data_ptr(), x.stride(0), scalar_type(0)] if x is not None else [None, 0, scalar_type(value)]
     refine_steps = params.refine_steps if params.refine_intersection else 0
-    zres, yres, xres = data.shape
-    with torch.cuda.device(data.device):
+    with torch.cuda.device(device):
         err = kernels.library("sphere_trace").sphere_trace_run(
-            data.data_ptr(), xres, yres, zres, origin.data_ptr(),
-            *(lanes[k].data_ptr() for k in ("o", "d", "t0", "maxt", "trace_eps", "active", "refine_active")),
-            ctypes.c_float(params.step_scale), int(params.max_steps), int(refine_steps),
-            its_t.data_ptr(), num_steps.data_ptr(), n,
-            torch.cuda.current_stream().cuda_stream,
+            operands["sdf_kind"], grid.data_ptr() if grid is not None else None, xres, yres, zres,
+            p.data_ptr(), r.data_ptr() if r is not None else None,
+            o.data_ptr(), o.stride(0), d.data_ptr(), d.stride(0), *per_lane,
+            ctypes.c_float(params.bbox_expand), ctypes.c_float(params.trace_eps), ctypes.c_float(params.step_scale),
+            int(params.max_steps), int(refine_steps), its_t.data_ptr(), num_steps.data_ptr(), next_ray.data_ptr(),
+            n, torch.cuda.current_stream().cuda_stream,
         )
     sphere_trace.kernel_launches += 1
     if err != 0:

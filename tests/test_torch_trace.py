@@ -15,7 +15,7 @@ from differentiable_sdf_rendering_tpu.ops import trace as jtrace
 from differentiable_sdf_rendering_tpu.ops.redistance import redistance as jredistance
 from differentiable_sdf_rendering_tpu.ops.sdf import GridSDF as JGridSDF, TraceParams as JTraceParams
 from differentiable_sdf_rendering_tpu_torch.ops import trace as ttrace
-from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF, SphereSDF, TraceParams
+from differentiable_sdf_rendering_tpu_torch.ops.sdf import BoxSDF, GridSDF, SphereSDF, TraceParams
 from torch_port_helpers import perturbed_sphere, t, to_np
 
 
@@ -176,34 +176,138 @@ def test_unported_options_raise(case):
     with pytest.raises(NotImplementedError):
         ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(refine="newton"))
     # the kernel's operand setup (reached on a CUDA tensor) refuses the same
-    # options, and any SDF but a grid
+    # options, and any SDF but a grid or the analytic sphere
     with pytest.raises(NotImplementedError):
-        ttrace._kernel_lanes(sdf, t(o), t(d), TraceParams(refine="newton"))
+        ttrace._kernel_operands(sdf, t(o), t(d), TraceParams(refine="newton"))
     with pytest.raises(NotImplementedError):
-        ttrace._kernel_lanes(SphereSDF.create(device="cpu"), t(o), t(d), TraceParams())
+        ttrace._kernel_operands(BoxSDF.create(device="cpu"), t(o), t(d), TraceParams())
+    # and operands the kernel cannot read
+    for data in (t(grid).double(), t(grid).transpose(0, 2)):
+        with pytest.raises(ValueError):
+            ttrace._kernel_operands(GridSDF(data=data, p=torch.zeros(3)), t(o), t(d), TraceParams())
+    with pytest.raises(ValueError):
+        ttrace._kernel_operands(sdf, t(o).double(), t(d).double(), TraceParams())
+
+
+def test_ray_setup_matches_jax(case):
+    """``_ray_setup`` (the setup the plain version runs, and the order of
+    operations the kernel's setup follows) against the JAX package's on the
+    same rays, unnormalised directions and a finite ``maxt`` on some lanes."""
+    grid, o, d, maxt = case
+    d = d * np.random.default_rng(3).uniform(0.5, 2.0, size=(d.shape[0], 1)).astype(np.float32)
+    jd, (jlo, jhi), jhit, jinside, jt0, jmaxt, jeps = jtrace._ray_setup(
+        JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), JTraceParams(), jnp.asarray(maxt))
+    td, (tlo, thi), thit, tinside, tt0, tmaxt, teps = ttrace._ray_setup(
+        GridSDF.create(t(grid)), t(o), t(d), TraceParams(), t(maxt))
+    np.testing.assert_array_equal(to_np(thit), np.asarray(jhit))
+    np.testing.assert_array_equal(to_np(tinside), np.asarray(jinside))
+    assert 100 < int(np.asarray(jhit).sum()) < 512 and np.asarray(jinside).sum() >= 40
+    for got, want in ((td, jd), (tlo, jlo), (thi, jhi), (tt0, jt0), (tmaxt, jmaxt), (teps, jeps)):
+        np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-6, atol=1e-7)
 
 
 def test_kernel_operands(case, masked):
-    """The flat per-lane operands handed to the CUDA kernel: shapes, types,
-    contiguity, and the ray setup they carry (inactive and missed lanes
-    inactive; finite maxt kept per lane)."""
+    """What the wrapper hands the CUDA kernel, which sets the rays up itself:
+    the grid and its origin as they are; the rays as (N, 3) views, a
+    broadcast origin with a lane stride of 0; per-lane ``maxt`` / ``active``
+    / ``refine_active`` as flat float32 / bool views, and scalars as values.
+    Nothing is copied when the inputs already have those layouts."""
     grid, o, d, maxt = case
-    lanes, lead = ttrace._kernel_lanes(*masked["args"], **masked["kw"])
+    sdf = masked["args"][0]
+    ops, lead = ttrace._kernel_operands(*masked["args"], **masked["kw"])
     assert lead == (512,)
+    assert ops["sdf_kind"] == 0 and ops["r"] is None
+    assert ops["grid"].data_ptr() == sdf.data.data_ptr() and ops["p"].data_ptr() == sdf.p.data_ptr()
     for key in ("o", "d"):
-        assert lanes[key].shape == (512, 3) and lanes[key].dtype == torch.float32
-    for key in ("t0", "maxt", "trace_eps", "active", "refine_active"):
-        assert lanes[key].shape == (512,) and lanes[key].is_contiguous()
-    assert lanes["active"].dtype == lanes["refine_active"].dtype == torch.uint8
-    np.testing.assert_allclose(np.linalg.norm(to_np(lanes["d"]), axis=-1), 1.0, rtol=1e-6)
-    active = to_np(lanes["active"]).astype(bool)
-    assert not active[~masked["active"]].any()
-    np.testing.assert_array_equal(to_np(lanes["refine_active"]).astype(bool), masked["refine"])
-    # every lane that hits in the plain version is active for the kernel
-    assert active[np.isfinite(masked["got"])].all()
-    fin = np.isfinite(maxt) & active
-    assert np.all(to_np(lanes["maxt"])[fin] <= maxt[fin])
-    # a scalar mask and maxt broadcast to every lane
-    lanes1, _ = ttrace._kernel_lanes(GridSDF.create(t(grid)), t(o), t(d), TraceParams(), maxt=2.0, active=True,
-                                     refine_active=False)
-    assert not to_np(lanes1["refine_active"]).any() and np.all(to_np(lanes1["maxt"]) <= 2.0)
+        assert ops[key].shape == (512, 3) and ops[key].dtype == torch.float32 and ops[key].stride() == (3, 1)
+    for key, dtype in (("maxt", torch.float32), ("active", torch.bool), ("refine_active", torch.bool)):
+        x, value = ops[key]
+        assert value is None and x.shape == (512,) and x.dtype == dtype and x.stride() == (1,)
+        assert x.data_ptr() == masked["kw"][key].data_ptr()
+    np.testing.assert_array_equal(to_np(ops["maxt"][0]), maxt)
+    np.testing.assert_array_equal(to_np(ops["active"][0]), masked["active"])
+    np.testing.assert_array_equal(to_np(ops["refine_active"][0]), masked["refine"])
+    # a camera: one origin for every lane, scalar maxt and masks
+    cam_o = t(o[0]).expand(512, 3)
+    ops1, _ = ttrace._kernel_operands(sdf, cam_o, t(d), TraceParams(), maxt=2.0, active=True, refine_active=False)
+    assert ops1["o"].stride() == (0, 1) and ops1["o"].data_ptr() == cam_o.data_ptr()
+    assert ops1["maxt"] == (None, 2.0) and ops1["active"] == (None, True) and ops1["refine_active"] == (None, False)
+    # a 0-dim maxt broadcasts with a stride of 0; a uint8 mask becomes bool;
+    # a strided mask is made contiguous
+    ops2, _ = ttrace._kernel_operands(sdf, t(o), t(d), TraceParams(), maxt=torch.tensor(3.0),
+                                      active=torch.ones(1024, dtype=torch.uint8)[::2])
+    assert ops2["maxt"][0].stride() == (0,) and float(ops2["maxt"][0][7]) == 3.0
+    assert ops2["active"][0].dtype == torch.bool and ops2["active"][0].stride() == (1,)
+
+
+def test_kernel_operands_sphere(case):
+    """The analytic sphere goes to the kernel as its centre and radius (the
+    kernel computes its box as ``SphereSDF.bbox`` does); the rays as for a
+    grid."""
+    _, o, d, _ = case
+    sphere = SphereSDF.create(p=(0.4, 0.5, 0.6), r=0.25, device="cpu")
+    ops, lead = ttrace._kernel_operands(sphere, t(o), t(d), TraceParams())
+    assert lead == (512,) and ops["sdf_kind"] == 1 and ops["grid"] is None
+    assert ops["p"].data_ptr() == sphere.p.data_ptr() and ops["r"].data_ptr() == sphere.r.data_ptr()
+    assert ops["o"].shape == ops["d"].shape == (512, 3)
+    # the box the kernel computes from the centre: (p - 0.5) - expand, (p + 0.5) + expand
+    lo, hi = sphere.bbox(TraceParams().bbox_expand)
+    p = to_np(sphere.p)
+    np.testing.assert_array_equal(to_np(lo), (p - np.float32(0.5)) - np.float32(0.05))
+    np.testing.assert_array_equal(to_np(hi), (p + np.float32(0.5)) + np.float32(0.05))
+    # and the plain version (what the kernel is held against on the card)
+    # traces it: every ray aimed near the centre from outside hits at
+    # |o - c| - r up to the refinement's tolerance
+    aim = t(0.4 + 0 * o) + torch.tensor([0.0, 0.1, 0.2])
+    rays_d = aim - t(o)
+    its = to_np(ttrace.sphere_trace_plain(sphere, t(o), rays_d, TraceParams()))
+    outside = np.linalg.norm(o - np.array([0.4, 0.5, 0.6]), axis=-1) > 0.6
+    want = np.linalg.norm(o - np.array([0.4, 0.5, 0.6]), axis=-1) - 0.25
+    np.testing.assert_allclose(its[outside], want[outside], atol=1e-5)
+
+
+def test_launch_arguments_match_c_signature(case, monkeypatch):
+    """The wrapper's call into ``sphere_trace_run``, run against a stand-in
+    for the library (the kernel itself runs only on the card): as many
+    arguments as the C entry in ``csrc/sphere_trace.cu`` declares and
+    ``kernels.SOURCES`` binds, each accepted by its ctypes type; scalars
+    passed as values, per-lane operands as pointers with their strides."""
+    import contextlib
+    import ctypes
+    import os
+    import re
+
+    from differentiable_sdf_rendering_tpu_torch import kernels
+
+    grid, o, d, maxt = case
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "csrc", "sphere_trace.cu")).read()
+    params = re.search(r'extern "C" int sphere_trace_run\(([^)]*)\)', src).group(1)
+    _, argtypes = kernels.SOURCES["sphere_trace"]["sphere_trace_run"]
+    assert len(params.split(",")) == len(argtypes)
+    calls = []
+
+    def run(*args):
+        assert len(args) == len(argtypes)
+        for a, typ in zip(args, argtypes):
+            typ.from_param(a)
+        calls.append(args)
+        return 0
+
+    monkeypatch.setitem(kernels._LIBS, "sphere_trace", type("Lib", (), {"sphere_trace_run": staticmethod(run)}))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: type("Stream", (), {"cuda_stream": 0}))
+    before = ttrace.sphere_trace.kernel_launches
+    sdf = GridSDF.create(t(grid))
+    its, steps = ttrace._sphere_trace_kernel(sdf, t(o[0]).expand(512, 3), t(d), TraceParams(), maxt=t(maxt),
+                                             active=True)
+    assert its.shape == steps.shape == (512,) and ttrace.sphere_trace.kernel_launches == before + 1
+    args = calls[-1]
+    assert args[:5] == (0, sdf.data.data_ptr(), 16, 16, 16) and args[6] is None  # grid, no radius
+    assert args[8] == 0 and args[10] == 3  # broadcast origin, per-lane directions
+    assert args[11] is not None and args[12] == 1  # per-lane maxt, stride 1
+    assert args[14] is None and args[16] == 1  # scalar active = True
+    assert args[19] == 1 and args[23] == 192 and args[24] == 10 and args[-2] == 512  # refinement on
+    sphere = SphereSDF.create(device="cpu")
+    ttrace._sphere_trace_kernel(sphere, t(o), t(d), TraceParams(refine_intersection=False))
+    args = calls[-1]
+    assert args[0] == 1 and args[1] is None and args[6] == sphere.r.data_ptr() and args[24] == 0  # no refinement
