@@ -12,19 +12,25 @@ line; any failure raises and the script exits non-zero:
    compiler per source, all started together).
 3. ``kernels`` — each kernel against its plain PyTorch version on the card,
    at the shapes the training path gives it, with CUDA-event timings:
-   redistancing at 16³, 32³, 64³ and the 128³ target (with the CUDA
-   launches of one call as the kernel's C entry counts them); the sphere
-   trace (K1) on one 2²¹-lane primal chunk of a ``bunny`` view (camera rays
-   and the shadow rays from their hits) at a 64³ grid and at the 128³
-   target: bare launch, wrapper, two launches bit-identical, and the step
-   statistics of the rays in lane
-   order with the time without the rays of 128 steps or more; the detached
-   grid evaluation (K2) on three point sets (the path's own points in lane
-   order, 2²¹ points near the surface in random order, the same in Morton
-   order); after these, K1 on the analytic sphere of the Pallas probe
+   redistancing bit for bit at 16³, 32³, 64³, the 128³ target and 256³ (the
+   ``-hqq`` grids) and on two non-cubic grids, on two level sets, at 0, 1, 5,
+   max(shape) and 2 max(shape) passes (at 256³ the plain version runs
+   max(shape) passes once), two launches bit-identical, the result near the
+   distance to a sphere (with the plain version in float64 as the witness
+   of the scheme's own error at every size); its times (kernel,
+   whole call, plain), bound, launch shape, the cost of one grid-wide
+   barrier at that launch and the SASS instructions of one voxel-pass; the
+   sphere trace (K1) on one 2²¹-lane primal chunk of a ``bunny`` view
+   (camera rays and the shadow rays from their hits) at a 64³ grid and at
+   the 128³ target: bare launch, wrapper, two launches bit-identical, and
+   the step statistics of the rays in lane order with the time without the
+   rays of 128 steps or more; the detached grid evaluation (K2) on three
+   point sets (the path's own points in lane order, 2²¹ points near the
+   surface in random order, the same in Morton order); after these, K1 on
+   the analytic sphere of the Pallas probe
    ``scripts/trace_probe_r3.py::probe_pallas`` (262,144 rays).
    ``--kernels-only`` stops after the grid cases (no sphere case, no later
-   phase).
+   phase but the launch count of redistancing).
 4. ``reference`` — a small primal render on the card against the same
    package's plain path on the host.
 5. ``train``   — ``optimize_shape("bunny", no-tex-12, warp)`` at the
@@ -32,13 +38,15 @@ line; any failure raises and the script exits non-zero:
    16³ → 32³ → 64³) for a few iterations, writing checkpoints and
    ``metadata.json``; depth (iterations, reference spp) is cut.  Kernel
    launch counts are zeroed just before and read just after; every kernel
-   must have run, and the grid must pass through 16³, 32³ and 64³.
+   must have run (redistancing at most 2 CUDA launches a call), and the grid
+   must pass through 16³, 32³ and 64³.
 6. ``cli``     — the two command-line entry points in-process:
    ``optimize_torch.main`` (``bunny``, ``no-tex-12``, 1 iteration) and
    ``render_turntable_torch.main`` on its checkpoint at the CLI's published
    512², 256 spp, 4 of its 64 frames; counts zeroed before and read after.
-7. ``launch_count`` — the CUDA launches of one K1 call, as ``torch.profiler``
-   records them, after the timed phases.
+7. ``launch_count`` — the CUDA launches of one redistancing call at every
+   size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
+   after the timed phases.
 8. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
@@ -48,6 +56,8 @@ from __future__ import annotations
 import importlib.metadata
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,37 +135,228 @@ def triton_version():
         return None
 
 
-def level_sets(res, rng):
-    """Two test inputs per resolution (numpy, from the seeded ``rng``): a
-    noise-perturbed sphere SDF and a level set that is not a distance."""
+def level_sets(shape, rng):
+    """Two test inputs on a grid of ``shape`` (an int for a cube; numpy, from
+    the seeded ``rng``): a noise-perturbed sphere SDF and a level set that is
+    not a distance; and the distance to its zero level set, the r = 0.28
+    sphere."""
     import numpy as np
 
-    c = (np.arange(res, dtype=np.float32) + 0.5) / res
-    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    shape = (shape,) * 3 if isinstance(shape, int) else shape
+    z, y, x = np.meshgrid(*((np.arange(n, dtype=np.float32) + 0.5) / n for n in shape), indexing="ij")
     r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
     perturbed = (r - 0.3 + 0.02 * rng.standard_normal(r.shape)).astype(np.float32)
     non_sdf = ((r - 0.28) * 3.0 * (1.0 + 0.5 * np.sin(7.0 * x) * np.cos(5.0 * y))).astype(np.float32)
     return {"perturbed_sphere": perturbed, "non_sdf": non_sdf}, (r - 0.28).astype(np.float32)
 
 
+# Grid sizes of the redistancing checks and timings: the training path's
+# 16³, 32³ and 64³, the 128³ target and the 256³ grids of the ``-hqq``
+# configurations; and two non-cubic grids, a small one and one of about the
+# voxel count of the training path's 64³.
+REDISTANCE_SIZES = (16, 32, 64, 128, 256)
+REDISTANCE_NON_CUBIC = ((8, 12, 16), (48, 64, 80))
+
+
+def redistance_bound(shape, iters):
+    """Least time of one redistancing call of ``iters`` passes on ``shape``:
+    47 operations a voxel-pass plus 2 a voxel (the finish), against dist0,
+    frozen and sign read once and the output written once."""
+    n = shape[0] * shape[1] * shape[2]
+    ops = REDISTANCE_OPS_PER_VOXEL_PASS * n * iters + 2 * n
+    nbytes = n * (4 + 1 + 4 + 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def redistance_plain_call(rd, phi, iters):
+    """The plain version of a whole call: the prologue, then the passes."""
+    import torch
+
+    sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
+    dist0, frozen = rd._interface_init(phi, rd._spacing(phi.shape))
+    return rd.redistance_plain(dist0, frozen, sign, iters)
+
+
+_SASS_CLASSES = (
+    ("memory", re.compile(r"^(LDG|STG|LDS|STS|LD|ST|ATOM|ATOMG|RED|LDGSTS)$")),
+    ("float", re.compile(r"^(F[A-Z0-9]*|MUFU|DADD|DMUL|DFMA|DSETP|F2F|FRND)$")),
+    ("integer", re.compile(r"^(U?IMAD|U?IADD3|U?LEA|U?SHF|U?LOP3|U?ISETP|U?IMNMX|VIMNMX|VIADD|IABS|U?SEL|I2F|F2I|"
+                           r"U?POPC|U?FLO|U?BREV|U?SGXT|U?PRMT|IMUL|ISCADD|IDP|U?MOV|U?IMUL)$")),
+    ("control", re.compile(r"^(BRA|EXIT|CALL|RET|BSSY|BSYNC|BAR|WARPSYNC|YIELD|BPT|JMP|JMX|BRX|ACQBULK)$")),
+)
+
+
+def sass_functions(text):
+    """``{kernel: [(address, opcode, instruction), ...]}`` from ``cuobjdump
+    -sass`` output, NOPs left out, branch labels replaced by addresses."""
+    funcs, labels, name, pending = {}, {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name, pending = m.group(1), []
+            funcs[name], labels[name] = [], {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if name is not None and m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name is not None and m:
+            addr, ins = int(m.group(1), 16), m.group(2).strip()
+            labels[name].update((lb, addr) for lb in pending)
+            pending = []
+            op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0].split(".")[0]
+            if op != "NOP":
+                funcs[name].append((addr, op, ins))
+    return {name: [(a, op, re.sub(r"`\((\.L_x_\d+)\)", lambda m: hex(labels[name].get(m.group(1), -1)), ins))
+                   for a, op, ins in body] for name, body in funcs.items()}
+
+
+def sass_class_counts(ins):
+    counts = {"total": len(ins)}
+    for _, op, _ in ins:
+        cls = next((c for c, pat in _SASS_CLASSES if pat.match(op)), "other")
+        counts[cls] = counts.get(cls, 0) + 1
+    return counts
+
+
+def voxel_pass_sass(ins):
+    """The instructions that update one voxel in one pass: the smallest loop
+    (a backward branch and its target) that holds a MUFU (the update's root
+    or reciprocal), or, in a kernel without such a loop, its main body (the
+    instructions before the first subroutine that a CALL enters: the slow
+    paths of division, square root and 64-bit integer division)."""
+    loops = []
+    for addr, op, text in ins:
+        m = re.search(r"BRA\s+(?:\S+\s+)?(0x[0-9a-f]+)$", text) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            body = [x for x in ins if int(m.group(1), 16) <= x[0] <= addr]
+            if any(x[1] == "MUFU" for x in body):
+                loops.append(body)
+    if loops:
+        return "smallest loop holding the update", min(loops, key=len)
+    calls = [int(m.group(1), 16) for _, op, text in ins if op == "CALL"
+             for m in [re.search(r"(0x[0-9a-f]+)$", text)] if m]
+    return "main body", [x for x in ins if x[0] < min(calls, default=1 << 62)]
+
+
+def redistance_sass():
+    """Static SASS of every kernel in the redistancing library, by class, and
+    of its voxel-pass code (:func:`voxel_pass_sass`)."""
+    from differentiable_sdf_rendering_tpu_torch import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", os.path.join(kernels.build_dir(), "libredistance.so")],
+                          check=True, capture_output=True, text=True).stdout
+    out = {}
+    for name, ins in sass_functions(text).items():
+        where, body = voxel_pass_sass(ins)
+        out[name] = {"function": sass_class_counts(ins), "voxel_pass": sass_class_counts(body), "voxel_pass_is": where}
+    return out
+
+
+def cubic_voxel_pass_sass(sass):
+    """Per-voxel-pass SASS counts of the kernel that runs cubic grids."""
+    name = next(n for n in sass if "Lb1E" in n)
+    return sass[name]["voxel_pass"]
+
+
+def barrier_probe_us(shapes):
+    """Microseconds of one grid-wide barrier (``grid.sync()``) in a cooperative
+    launch of ``blocks`` blocks of ``threads`` threads, for each ``(blocks,
+    threads)`` of ``shapes``: the time of 64 barriers less that of none, over
+    64."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch import kernels
+
+    lib = kernels.library("redistance")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def probe(blocks, threads, syncs):
+        err = lib.redistance_barrier_probe(blocks, threads, syncs, stream)
+        if err != 0:
+            raise RuntimeError(f"barrier probe ({blocks} x {threads}): CUDA error {err}")
+
+    out = {}
+    for b, t in shapes:
+        t64, t0 = cuda_ms(lambda: probe(b, t, 64)), cuda_ms(lambda: probe(b, t, 0))
+        out[f"{b}x{t}"] = (t64 - t0) * 1e3 / 64
+    return out
+
+
+def redistance_launch_shape(shape):
+    """``(blocks, threads, seg_len)`` of the launch ``redistance_run`` makes."""
+    import ctypes
+
+    from differentiable_sdf_rendering_tpu_torch import kernels
+
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = kernels.library("redistance").redistance_launch_shape(*shape, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"redistance_launch_shape: CUDA error {err}")
+    return tuple(v.value for v in vals)
+
+
+def redistance_timing(rd, phi):
+    """Times of one redistancing call of ``max(shape)`` passes on ``phi``:
+    the kernel alone, the whole call (``redistance(phi)``), the plain passes
+    (``redistance_plain``; one run at 256³ and above), the bound, and the CUDA
+    launches of a whole call as the kernel's C entry counts them;
+    ``plain_equal``: the kernel's result equals the plain version's bit for
+    bit."""
+    import torch
+
+    iters = max(phi.shape)
+    sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
+    dist0, frozen = rd._interface_init(phi, rd._spacing(phi.shape))
+    before = rd.redistance.cuda_launches
+    got = rd.redistance(phi)
+    cuda_launches = rd.redistance.cuda_launches - before
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = rd.redistance_plain(dist0, frozen, sign, iters)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end) if phi.numel() >= 256 ** 3 else cuda_ms(
+        lambda: rd.redistance_plain(dist0, frozen, sign, iters), repeats=3 if phi.numel() >= 128 ** 3 else 10, warmup=1)
+    bound_ms, bound_by = redistance_bound(phi.shape, iters)
+    return {
+        "iterations": iters,
+        "ms": cuda_ms(lambda: rd._redistance_kernel(phi, iters)),
+        "wrapper_ms": cuda_ms(lambda: rd.redistance(phi)),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "cuda_launches_per_call": cuda_launches,
+        "plain_equal": bool(torch.equal(got, want)),
+        "max_abs_diff": float((got - want).abs().max()),
+    }
+
+
 def phase_kernels(device):
+    """The redistancing kernel against its plain version on the card, bit
+    for bit: both level sets at every size of ``REDISTANCE_SIZES`` and on the
+    two non-cubic grids, at 0, 1, 5, max(shape) and 2 max(shape) passes (at
+    256³ the plain version runs max(shape) passes once, on the perturbed
+    sphere); two launches bit-identical; the sphere-distance sanity check
+    with its float64 witness; then the timings, the barrier probe at each
+    size's launch and the per-voxel-pass SASS."""
     import numpy as np
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.ops import redistance as rd
 
     rng = np.random.default_rng(0)
-    by_res = {}
-    max_err = 0.0
-    for res in (16, 32, 64, 128):
-        inputs, true_dist = level_sets(res, rng)
+    max_err, checked, by_res, sphere_dev = 0.0, [], {}, {}
+    for shape in [(res,) * 3 for res in REDISTANCE_SIZES] + list(REDISTANCE_NON_CUBIC):
+        res = max(shape)
+        inputs, true_dist = level_sets(shape, rng)
         for name, phi_np in inputs.items():
             phi = torch.as_tensor(phi_np, device=device)
-            sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
-            dist0, frozen = rd._interface_init(phi, rd._spacing(phi.shape))
-            for iters in sorted({0, 5, res}):
+            iter_counts = [0, 1, 5] if res >= 256 else [0, 1, 5, res, 2 * res]
+            for iters in iter_counts:
                 got = rd.redistance(phi, iterations=iters)
-                want = rd.redistance_plain(dist0, frozen, sign, iters)
+                want = redistance_plain_call(rd, phi, iters)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 max_err = max(max_err, err)
@@ -163,51 +364,58 @@ def phase_kernels(device):
                 # contraction and must equal the plain version bit for bit
                 if not torch.equal(got, want):
                     raise AssertionError(
-                        f"redistance kernel != plain version at {res}^3 / {name} / "
-                        f"{iters} passes: max abs diff {err}"
-                    )
+                        f"redistance kernel != plain version on {shape} / {name} / {iters} passes: "
+                        f"max abs diff {err}")
+                checked.append([list(shape), name, iters])
+            got = rd.redistance(phi, iterations=res)
+            # one thread a column segment, each voxel from the previous pass
+            # only: two launches are bit-identical
+            if not torch.equal(got, rd.redistance(phi, iterations=res)):
+                raise AssertionError(f"two launches of the redistancing kernel differ on {shape} / {name}")
             if name == "non_sdf":
                 # sanity: the zero level set is the r = 0.28 sphere, so the
-                # result must be its distance up to the scheme's error: first
-                # order in h, plus the float32 cancellation in the quadratic
-                # solve, which at 128^3 reaches 0.04 (in the JAX package's
-                # solver as well; in float64 the same passes stay below 0.003)
-                h = 1.0 / res
+                # result must be its distance up to the scheme's error, first
+                # order in h.  In float32 the cancellation in the quadratic
+                # solve adds to it and grows with the size (in the JAX
+                # package's solver as well), so the witness that the scheme
+                # itself stays within the bound is the plain version in
+                # float64 on the same input, held to it at every size; the
+                # kernel's float32 reading is held to it up to 128^3 and
+                # recorded above, where the kernel is held to the float32
+                # plain version bit for bit instead
+                h = 1.0 / min(shape)
+                bound = max(2.0 * h, 0.05)
                 band = np.abs(true_dist) < 0.15
-                dev = np.abs(got.cpu().numpy() - true_dist)[band].max()
-                if not dev < max(2.0 * h, 0.05):
-                    raise AssertionError(f"redistance off the sphere distance by {dev} at {res}^3")
-        # timings on the perturbed sphere, full pass count
-        phi = torch.as_tensor(inputs["perturbed_sphere"], device=device)
-        sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
-        dist0, frozen = rd._interface_init(phi, rd._spacing(phi.shape))
-        n = res ** 3
-        ops = REDISTANCE_OPS_PER_VOXEL_PASS * n * res + 2 * n
-        nbytes = n * (4 + 1 + 4 + 4)  # dist0, frozen, sign read once; out written once
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-        # CUDA launches of one call, counted by redistance_run itself
-        before = rd.redistance.cuda_launches
-        rd._redistance_kernel(dist0, frozen, sign, res)
-        cuda_launches = rd.redistance.cuda_launches - before
-        ms = cuda_ms(lambda: rd._redistance_kernel(dist0, frozen, sign, res))
-        by_res[res] = {
-            "ms": ms,
-            "plain_ms": cuda_ms(lambda: rd.redistance_plain(dist0, frozen, sign, res), repeats=10 if res < 128 else 3, warmup=1),
-            "wrapper_ms": cuda_ms(lambda: rd.redistance(phi)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "cuda_launches_per_call": cuda_launches,
-            "us_per_cuda_launch": ms * 1e3 / cuda_launches,
-        }
-    # a non-cubic grid on the card has no kernel yet: it must raise, not
-    # fall back to the plain version
-    try:
-        rd.redistance(torch.full((8, 12, 16), 0.1, device=device))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("redistance accepted a non-cubic CUDA grid")
-    emit({"phase": "kernels", "redistance": {"max_abs_diff": max_err, "by_res": by_res}})
+                dev = float(np.abs(got.cpu().numpy() - true_dist)[band].max())
+                want64 = redistance_plain_call(rd, phi.double(), res)
+                dev64 = float(np.abs(want64.cpu().numpy() - true_dist)[band].max())
+                del want64
+                sphere_dev[str(list(shape))] = {"kernel_float32": dev, "plain_float64": dev64}
+                if not dev64 < bound:
+                    raise AssertionError(f"float64 plain redistancing off the sphere distance by {dev64} on {shape}")
+                if res <= 128 and not dev < bound:
+                    raise AssertionError(f"redistance off the sphere distance by {dev} on {shape}")
+        if len(set(shape)) == 1:
+            # timings on the perturbed sphere, full pass count; at 256^3 this
+            # is the check at max(shape) passes too
+            timing = redistance_timing(rd, torch.as_tensor(inputs["perturbed_sphere"], device=device))
+            if not timing["plain_equal"]:
+                raise AssertionError(f"redistance kernel != plain version at {res}^3 / perturbed_sphere / "
+                                     f"{res} passes: max abs diff {timing['max_abs_diff']}")
+            if res >= 256:
+                checked.append([list(shape), "perturbed_sphere", res])
+            blocks, threads, seg_len = redistance_launch_shape(shape)
+            by_res[res] = {**timing, "blocks": blocks, "threads": threads, "seg_len": seg_len}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    probe = barrier_probe_us({(sms, 1024), (8 * sms, 256)} | {(r["blocks"], r["threads"]) for r in by_res.values()})
+    sass = redistance_sass()
+    for r in by_res.values():
+        r["us_per_barrier"] = probe[f"{r['blocks']}x{r['threads']}"]
+        r["sass_per_voxel_pass"] = cubic_voxel_pass_sass(sass)
+    emit({"phase": "kernels", "redistance": {
+        "max_abs_diff": max_err, "checked": checked, "by_res": by_res, "barrier_probe_us": probe,
+        "non_sdf_max_abs_dev_from_sphere_distance": sphere_dev,
+        "sass": {name.split("_cu_")[-1]: v for name, v in sass.items()}}})
     return max_err, by_res
 
 
@@ -265,9 +473,10 @@ def k1_bare(sdf, o, d, params, lanes_kw):
 
 
 def cuda_launches_per_call(fn):
-    """CUDA kernels (and memsets) that one call of ``fn`` puts on the card,
-    as ``torch.profiler`` records them.  Run after the timed phases, so that
-    the profiler's tracing cannot reach the times of the training step, whose
+    """``(launches, device_ms)``: the CUDA kernels (and memsets) that one call
+    of ``fn`` puts on the card and the sum of their device times, as
+    ``torch.profiler`` records them.  Run after the timed phases, so that the
+    profiler's tracing cannot reach the times of the training step, whose
     host launches are its pace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -277,7 +486,8 @@ def cuda_launches_per_call(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows) / 1e3
 
 
 def trace_bytes(sdf, o, d, lanes_kw):
@@ -638,8 +848,11 @@ def phase_train(device):
         raise AssertionError(f"grid went through {seen}, expected 16^3, 32^3 and 64^3")
     if not torch.isfinite(final).all() or not torch.isfinite(result.ema["sdf"]).all():
         raise AssertionError("final grid has non-finite values")
-    if launches < ITERS:
-        raise AssertionError(f"redistance kernel launched {launches} times in {ITERS} iterations")
+    # every iteration redistances (more than once at an upsampling), and
+    # each call is one cooperative launch
+    if launches < ITERS or not 0 < cuda_launches <= 2 * launches:
+        raise AssertionError(f"redistance kernel: {launches} calls, {cuda_launches} CUDA launches "
+                             f"in {ITERS} iterations")
     if counts["sphere_trace"] == 0 or counts["grid_eval_grad"] == 0:
         raise AssertionError(f"a kernel of the training path was not launched: {counts}")
     eik = eikonal_median(final)
@@ -732,18 +945,34 @@ def phase_cli(device):
     return optimize_counts, turntable_counts
 
 
-def phase_launch_count(device):
-    """CUDA launches of one ``sphere_trace`` call on the camera chunk at 64^3
-    (the kernel and the fill of its ray counter)."""
+def phase_launch_count(device, k1=True):
+    """CUDA launches (kernels and memsets, as ``torch.profiler`` records
+    them) of one ``redistance`` call on the perturbed sphere at every size of
+    ``REDISTANCE_SIZES`` (the kernel alone: at most 2) with their device
+    time, and of one ``sphere_trace`` call on the camera chunk at 64^3 (the
+    kernel and the fill of its ray counter)."""
+    import numpy as np
     import torch
 
+    from differentiable_sdf_rendering_tpu_torch.ops import redistance as rd
     from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
 
-    name, sdf, o, d, params, lanes_kw, _ = next(path_ray_sets(device))
-    with torch.no_grad():
-        launches = cuda_launches_per_call(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw))
-    emit({"phase": "launch_count", "set": name, "sphere_trace_cuda_launches_per_call": launches})
-    return launches
+    redistance_launches, device_ms = {}, {}
+    for res in REDISTANCE_SIZES:
+        phi = torch.as_tensor(level_sets(res, np.random.default_rng(res))[0]["perturbed_sphere"], device=device)
+        redistance_launches[res], device_ms[res] = cuda_launches_per_call(lambda: rd.redistance(phi))
+    if not all(0 < n <= 2 for n in redistance_launches.values()):
+        raise AssertionError(f"CUDA launches of one redistance call: {redistance_launches}")
+    line = {"phase": "launch_count", "redistance_cuda_launches_per_call": redistance_launches,
+            "redistance_device_ms_per_call": device_ms}
+    launches = None
+    if k1:
+        name, sdf, o, d, params, lanes_kw, _ = next(path_ray_sets(device))
+        with torch.no_grad():
+            launches, _ = cuda_launches_per_call(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw))
+        line.update(set=name, sphere_trace_cuda_launches_per_call=launches)
+    emit(line)
+    return launches, redistance_launches
 
 
 def main(argv):
@@ -769,6 +998,7 @@ def main(argv):
     max_err, by_res = phase_kernels(device)
     trace, grid_eval = phase_trace_kernels(device)
     if argv == ["--kernels-only"]:
+        phase_launch_count(device, k1=False)
         return 0
     if argv:
         raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
@@ -776,7 +1006,7 @@ def main(argv):
     phase_reference(device)
     train_counts = phase_train(device)
     optimize_counts, turntable_counts = phase_cli(device)
-    k1_launches = phase_launch_count(device)
+    k1_launches, redistance_launches = phase_launch_count(device)
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
@@ -796,7 +1026,10 @@ def main(argv):
             "cli_launches": optimize_counts["redistance"] + turntable_counts["redistance"],
             "max_abs_err": max_err, "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
             "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"], "library_ms": None,
+            "wrapper_ms": main_res["wrapper_ms"], "wrapper_cuda_launches": redistance_launches[64],
             "shape": "64x64x64 fp32, 64 passes",
+            "by_res": {res: {key: r[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+                       for res, r in by_res.items()},
         },
         {
             "name": "sphere_trace", "route": "cuda",

@@ -44,7 +44,9 @@ _FLOAT = ctypes.c_float
 # name → {C function: (restype, argtypes)}
 SOURCES = {
     "redistance": {
-        "redistance_run": (_INT, [_VOIDP] * 6 + [_INT, _INT, _VOIDP, ctypes.POINTER(_INT)]),
+        "redistance_run": (_INT, [_VOIDP] * 3 + [_INT] * 4 + [_VOIDP, ctypes.POINTER(_INT)]),
+        "redistance_launch_shape": (_INT, [_INT] * 3 + [ctypes.POINTER(_INT)] * 3),
+        "redistance_barrier_probe": (_INT, [_INT, _INT, _INT, _VOIDP]),
     },
     "sphere_trace": {
         "sphere_trace_run": (

@@ -14,11 +14,13 @@ is a parallel Godunov-Jacobi iteration:
 ``K = max(resolution)`` reaches the first-order fixed point; a smaller ``K``
 still yields correct distances within ``K`` voxels of the surface.
 
-:func:`redistance` is the wrapper: sign and interface initialisation are
-plain tensor code for every input; the passes run in the hand-written CUDA
-kernel ``csrc/redistance.cu`` when the tensor lies on the card, and in
-:func:`redistance_plain` when it lies on the host.  A CUDA tensor never
-reaches the plain version: the kernel launches or the call raises.
+:func:`redistance` is the wrapper.  A tensor on the card goes whole to the
+hand-written CUDA kernel ``csrc/redistance.cu``: sign, interface setup, every
+pass and the finish in one cooperative launch, for cubic and non-cubic grids.
+A tensor on the host goes through the plain version, :func:`_interface_init`
+then :func:`redistance_plain`, which perform the kernel's operations in its
+order.  A CUDA tensor never reaches the plain version: the kernel launches or
+the call raises.
 """
 
 from __future__ import annotations
@@ -167,31 +169,28 @@ def redistance_plain(dist0, frozen, sign, iterations: int):
     return sign * torch.clamp_max(u, _FAR)
 
 
-def _redistance_kernel(dist0, frozen, sign, iterations: int):
-    """Launch ``csrc/redistance.cu::redistance_run`` on the current stream."""
+def _redistance_kernel(phi, iterations: int):
+    """Launch ``csrc/redistance.cu::redistance_run`` on the current stream:
+    the whole redistancing of ``phi`` (a contiguous float32 (Z, Y, X) CUDA
+    tensor) with ``iterations`` passes, in one cooperative launch."""
     from .. import kernels
 
-    res = dist0.shape[0]
-    if not (dist0.shape[1] == res and dist0.shape[2] == res):
-        raise NotImplementedError(
-            f"the CUDA redistancing kernel takes cubic grids only, got {tuple(dist0.shape)}"
+    if not (phi.is_cuda and phi.dtype == torch.float32 and phi.ndim == 3 and phi.is_contiguous()):
+        raise ValueError(
+            "the CUDA redistancing kernel takes a contiguous float32 (Z, Y, X) CUDA tensor, got "
+            f"{phi.dtype} {tuple(phi.shape)} on {phi.device} (contiguous: {phi.is_contiguous()})"
         )
-    dist0 = dist0.contiguous()
-    sign = sign.contiguous()
-    frozen_u8 = frozen.to(torch.uint8).contiguous()
-    out = torch.empty_like(dist0)
-    u_a = torch.empty_like(dist0)
-    u_b = torch.empty_like(dist0)
-    lib = kernels.library("redistance")
+    nz, ny, nx = phi.shape
+    out = torch.empty_like(phi)
+    # the two pass buffers, each with a one-voxel halo on every side
+    scratch = torch.empty(2 * (nz + 2) * (ny + 2) * (nx + 2), dtype=torch.float32, device=phi.device)
     launched = ctypes.c_int(0)
-    with torch.cuda.device(dist0.device):
-        err = lib.redistance_run(
-            dist0.data_ptr(), frozen_u8.data_ptr(), sign.data_ptr(),
-            u_a.data_ptr(), u_b.data_ptr(), out.data_ptr(),
-            int(res), int(iterations), torch.cuda.current_stream().cuda_stream,
-            ctypes.byref(launched),
+    with torch.cuda.device(phi.device):
+        err = kernels.library("redistance").redistance_run(
+            phi.data_ptr(), scratch.data_ptr(), out.data_ptr(), nz, ny, nx, int(iterations),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched),
         )
-    redistance.kernel_launches += 1
+    redistance.kernel_launches += launched.value > 0  # an empty grid launches nothing
     redistance.cuda_launches += launched.value
     if err != 0:
         raise RuntimeError(f"redistance_run: CUDA error {err} at launch")
@@ -207,11 +206,11 @@ def redistance(phi, iterations: int | None = None):
       iterations: Jacobi-Godunov passes; defaults to ``max(res)``, which
         reaches the fixed point everywhere in the grid.
 
-    A CUDA tensor goes through the CUDA kernel (cubic grids; anything else
-    raises ``NotImplementedError``), a CPU tensor through
-    :func:`redistance_plain`.  ``redistance.kernel_launches`` counts the
-    calls that went to the kernel, ``redistance.cuda_launches`` the CUDA
-    launches those calls made, as ``redistance_run`` reports them.
+    A CUDA tensor goes whole through the CUDA kernel (one launch), a CPU
+    tensor through :func:`_interface_init` and :func:`redistance_plain`.
+    ``redistance.kernel_launches`` counts the calls that went to the kernel,
+    ``redistance.cuda_launches`` the CUDA launches those calls made, as
+    ``redistance_run`` reports them.
 
     Returns:
       Signed distance grid of the same shape, float32.
@@ -223,12 +222,11 @@ def redistance(phi, iterations: int | None = None):
         iterations = max(phi.shape)
 
     phi = phi.detach().to(torch.float32)
-    sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
-    dist0, frozen = _interface_init(phi, _spacing(phi.shape))
-
     if phi.is_cuda:
-        out = _redistance_kernel(dist0, frozen, sign, int(iterations))
+        out = _redistance_kernel(phi.contiguous(), int(iterations))
     else:
+        sign = torch.where(phi >= 0.0, 1.0, -1.0).to(torch.float32)
+        dist0, frozen = _interface_init(phi, _spacing(phi.shape))
         out = redistance_plain(dist0, frozen, sign, int(iterations))
     if squeeze:
         out = out[..., None]

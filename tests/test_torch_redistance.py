@@ -2,6 +2,7 @@
 tensor, and what the CUDA kernel is held against on the card) vs the JAX
 package's Pallas kernel in interpret mode and its XLA solver."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,7 +91,10 @@ def test_redistance_non_power_of_two():
     # 24³: 1/h² is not a power of two, the JAX side's two paths differ in the
     # last bits themselves (their own test allows 1e-5); so does the port.
     phi = _non_sdf(24)
-    want = np.asarray(jrd.redistance(jnp.asarray(phi), iterations=24, prefer_pallas=False))
+    # jitted: one compile instead of one per operation of the eager call (no
+    # other test compiles this shape); the port is 4.2e-6 from either
+    redistance = jax.jit(jrd.redistance, static_argnames=("iterations", "prefer_pallas"))
+    want = np.asarray(redistance(jnp.asarray(phi), iterations=24, prefer_pallas=False))
     got = to_np(trd.redistance(t(phi), iterations=24))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -110,6 +114,27 @@ def test_redistance_non_cubic():
     want = np.asarray(jrd.redistance(jnp.asarray(phi), prefer_pallas=False))
     got = to_np(trd.redistance(t(phi)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_redistance_non_cubic_beyond_max_shape():
+    # more passes than max(shape): the front has reached every voxel and the
+    # later passes must leave it where the JAX package leaves it; tolerance as
+    # in test_redistance_non_cubic (per-axis weights that are not powers of
+    # two, and XLA's FMA contraction against PyTorch's one rounding an op)
+    phi = perturbed_sphere((8, 12, 16), seed=7, radius=0.25)
+    want = np.asarray(jrd.redistance(jnp.asarray(phi), iterations=20, prefer_pallas=False))
+    got = to_np(trd.redistance(t(phi), iterations=20))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(to_np(trd.redistance(t(phi), iterations=32)), got)
+
+
+def test_kernel_wrapper_rejects_a_host_tensor():
+    # the CUDA wrapper never runs the plain version: a CPU tensor raises
+    # before anything is built or counted
+    before = (trd.redistance.kernel_launches, trd.redistance.cuda_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trd._redistance_kernel(t(perturbed_sphere(8, seed=8)), 4)
+    assert (trd.redistance.kernel_launches, trd.redistance.cuda_launches) == before
 
 
 def test_wrapper_is_detached_and_counts_no_launch_on_cpu():
