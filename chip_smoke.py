@@ -44,10 +44,24 @@ line; any failure raises and the script exits non-zero:
    ``optimize_torch.main`` (``bunny``, ``no-tex-12``, 1 iteration) and
    ``render_turntable_torch.main`` on its checkpoint at the CLI's published
    512², 256 spp, 4 of its 64 frames; counts zeroed before and read after.
-7. ``launch_count`` — the CUDA launches of one redistancing call at every
+7. ``textured`` — ``optimize_shape("trefoil-hdr", principled-12, warp)``
+   at the published widths (12 views, batches of 6, 128² film, 64 + 256 spp,
+   a 64³ SDF, a 64³×3 albedo and a 16³ roughness volume under the
+   principled BSDF, the checked-in HDR envmap, the 128³ ``.vol`` target);
+   depth cut to 4 iterations, reference spp 64, SDF 16³ → 64³ after
+   iterations 1 and 2, albedo 8³ → 64³ after 1, 2 and 3 (roughness keeps its
+   fixed schedule and stays 4³, as in the first 128 iterations of a full
+   run).  Counts zeroed before and read after; checkpoints of all three
+   volumes read back; then ``render_turntable_torch.main`` on its output, 1
+   frame at 512², 256 spp.
+8. ``golden`` — the port's renders of the ``trefoil``, ``blob`` and
+   ``cinquefoil`` assets (64³, 64², 16 spp, view 0, seed 0) against the JAX
+   package's golden EXRs at its own bound (atol 5e-4, rtol 1e-3).
+9. ``launch_count`` — the CUDA launches of one redistancing call at every
    size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
-   after the timed phases.
-8. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+   after the timed phases; and the launches and device time of one view of
+   the textured step with and without its texture volumes bound.
+10. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -472,22 +486,34 @@ def k1_bare(sdf, o, d, params, lanes_kw):
     return lambda: tr._launch_sphere_trace(operands, params)
 
 
+# Sessions of torch.profiler that one measurement may take: a session has come
+# back from an H100 with no device activity at all for a call that did launch
+# (a 1.6 ms redistancing call at 128³, launched by the kernel's C entry);
+# such a session lost its records and is taken again.
+PROFILER_SESSIONS = 3
+
+
 def cuda_launches_per_call(fn):
-    """``(launches, device_ms)``: the CUDA kernels (and memsets) that one call
-    of ``fn`` puts on the card and the sum of their device times, as
-    ``torch.profiler`` records them.  Run after the timed phases, so that the
-    profiler's tracing cannot reach the times of the training step, whose
-    host launches are its pace."""
+    """``(launches, device_ms, sessions)``: the CUDA kernels (and memsets) that
+    one call of ``fn`` puts on the card and the sum of their device times, as
+    ``torch.profiler`` records them, and the profiler sessions that took: one
+    that recorded no device activity is taken again, at most
+    ``PROFILER_SESSIONS`` times, after which its zero stands.  Run after the
+    timed phases, so that the profiler's tracing cannot reach the times of
+    the training step, whose host launches are its pace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows) / 1e3
+    for session in range(1, PROFILER_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if rows:
+            break
+    return sum(e.count for e in rows), sum(e.self_device_time_total for e in rows) / 1e3, session
 
 
 def trace_bytes(sdf, o, d, lanes_kw):
@@ -874,25 +900,17 @@ def phase_train(device):
 TURNTABLE_FRAMES = 4
 
 
-def phase_cli(device):
-    """``optimize_torch.main`` then ``render_turntable_torch.main`` in-process,
-    at the published widths: ``bunny`` / ``no-tex-12`` / ``warp`` for one
-    iteration (reference spp cut to 64 as in the train phase), then the
-    turntable at 512², 256 spp for 4 of its 64 frames."""
+def frame_recorder(render_chunked, frames, device):
+    """A stand-in for ``utils/video.render_chunked`` that records, for each
+    turntable frame, its image before tonemapping (finite values, shape,
+    seconds) and its coverage: the share of pixel-centre camera rays that
+    hit the shape, traced by the plain version so that no kernel launch is
+    counted."""
     import torch
 
-    import optimize_torch
-    import render_turntable_torch
     from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace_plain
-    from differentiable_sdf_rendering_tpu_torch.utils import io, video
-
-    frames = []
-    render_chunked = video.render_chunked
 
     def recording_render(scene, **kw):
-        # each frame's image before tonemapping (finite values, time) and its
-        # coverage: the share of pixel-centre camera rays that hit the shape,
-        # traced by the plain version so that no kernel launch is counted
         t_frame = time.perf_counter()
         img = render_chunked(scene, **kw)
         torch.cuda.synchronize()
@@ -905,6 +923,24 @@ def phase_cli(device):
         frames.append({"finite": bool(torch.isfinite(img).all()), "coverage": float(hit.float().mean()),
                        "shape": list(img.shape), "seconds": seconds})
         return img
+
+    return recording_render
+
+
+def phase_cli(device):
+    """``optimize_torch.main`` then ``render_turntable_torch.main`` in-process,
+    at the published widths: ``bunny`` / ``no-tex-12`` / ``warp`` for one
+    iteration (reference spp cut to 64 as in the train phase), then the
+    turntable at 512², 256 spp for 4 of its 64 frames."""
+    import torch
+
+    import optimize_torch
+    import render_turntable_torch
+    from differentiable_sdf_rendering_tpu_torch.utils import io, video
+
+    frames = []
+    render_chunked = video.render_chunked
+    recording_render = frame_recorder(render_chunked, frames, device)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out_dir:
         reset_counts()
@@ -945,7 +981,234 @@ def phase_cli(device):
     return optimize_counts, turntable_counts
 
 
-def phase_launch_count(device, k1=True):
+# depth cuts of the textured phase: iterations (512 in a full run; the
+# reference spp of the train phase); the SDF and albedo schedules are cut so
+# that every size runs within them
+TEX_ITERS = 4
+TEX_SCENE, TEX_CONFIG = "trefoil-hdr", "principled-12"
+
+
+def phase_textured(device):
+    """``optimize_shape("trefoil-hdr", principled-12, warp)`` at the published
+    widths with checkpoints, then ``render_turntable_torch.main`` on its
+    output for one 512², 256-spp frame (counts zeroed before each, read
+    after).  Returns the run's result and the counts of both."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import render_turntable_torch
+    from differentiable_sdf_rendering_tpu_torch.models.emitter import GridEnvmap
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import ASSET_DIR
+    from differentiable_sdf_rendering_tpu_torch.ops.redistance import redistance
+    from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+    from differentiable_sdf_rendering_tpu_torch.utils import io, video
+
+    opt_cfg, _ = get_opt_config(TEX_CONFIG)
+    method = get_config("warp")
+    # depth cuts: the SDF doubles after iterations 1 and 2 (16³ → 64³), the
+    # albedo after 1, 2 and 3 (8³ → 64³); widths are the published ones
+    opt_cfg.upsample_iter = (1, 2)
+    opt_cfg.tex_upsample_iter = (1, 2, 3)
+    specs = {s.key: s for s in opt_cfg.variables()}
+    assert (opt_cfg.n_sensors, opt_cfg.batch_size, opt_cfg.resx, opt_cfg.resy) == (12, 6, 128, 128)
+    assert (method.spp, method.primal_spp_mult) == (64, 4)
+    assert [(k, s.resolution, s.initial_resolution) for k, s in specs.items()] == [
+        ("sdf", 64, 16), ("albedo", 64, 8), ("roughness", 16, 4)]
+
+    targets, seen = [], []
+    target_sdf = shape_opt.target_sdf
+
+    def recording_target(*a, **kw):
+        targets.append(target_sdf(*a, **kw))
+        return targets[-1]
+
+    def record(i, params, losses):
+        seen.append({k: tuple(v.shape) for k, v in params.items()})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_textured_") as root:
+        out_dir = os.path.join(root, TEX_SCENE, TEX_CONFIG, method.name)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        shape_opt.target_sdf = recording_target
+        t0 = time.perf_counter()
+        try:
+            result = shape_opt.optimize_shape(TEX_SCENE, opt_cfg, method, output_dir=out_dir, n_iter=TEX_ITERS,
+                                              ref_spp=REF_SPP, verbose=False, checkpoint_cb=record)
+        finally:
+            shape_opt.target_sdf = target_sdf
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        files = sorted(os.listdir(os.path.join(out_dir, "params")))
+        want = sorted(f"{k}-{tag}.vol" for k in specs for tag in ("data-0000", f"data-{TEX_ITERS - 1:04d}", "final"))
+        if files != want:
+            raise AssertionError(f"checkpoints written: {files}, expected {want}")
+        ema_back = shape_opt.load_checkpoint(out_dir, "final", specs.values(), device=device)
+        last_back = shape_opt.load_checkpoint(out_dir, TEX_ITERS - 1, specs.values(), device=device)
+        for k in specs:
+            if not (torch.equal(ema_back[k], result.ema[k]) and torch.equal(last_back[k], result.params[k])):
+                raise AssertionError(f"the '{k}' checkpoints do not read back as the run's tensors and EMA")
+
+        frames = []
+        render_chunked = video.render_chunked
+        video.render_chunked = frame_recorder(render_chunked, frames, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            render_turntable_torch.main([TEX_SCENE, "--optconfig", TEX_CONFIG, "--config", method.name,
+                                         "--outputdir", root, "--n_frames", "1"])
+        finally:
+            video.render_chunked = render_chunked
+        turntable_seconds = time.perf_counter() - t0
+        turntable_counts = read_counts()
+        pngs = sorted(os.listdir(os.path.join(out_dir, "turntable")))
+        png_shapes = [io.read_png(os.path.join(out_dir, "turntable", f)).shape for f in pngs]
+
+    # the target the run used is the 128³ asset, redistanced on the card
+    vol = io.read_vol(os.path.join(ASSET_DIR, "sdfs", "trefoil_128.vol"))[..., 0]
+    if len(targets) != 1 or not torch.equal(targets[0], redistance(torch.from_numpy(vol.copy()).to(device))):
+        raise AssertionError("the target grid is not redistance(read_vol(trefoil_128.vol)) on the card")
+    emitter = result.scene.emitter
+    sky = io.read_exr(os.path.join(ASSET_DIR, "envmaps", "studio_sky.exr"))
+    if not (isinstance(emitter, GridEnvmap) and tuple(emitter.image.shape) == (128, 256, 3)
+            and np.array_equal(emitter.image.cpu().numpy(), sky)):
+        raise AssertionError("the emitter is not the GridEnvmap of envmaps/studio_sky.exr")
+    if not all(math.isfinite(v) for v in result.loss_values) or len(result.loss_values) != TEX_ITERS:
+        raise AssertionError(f"losses not finite: {result.loss_values}")
+    shapes = {k: tuple(v.shape) for k, v in result.params.items()}
+    if shapes != {"sdf": (64,) * 3, "albedo": (64, 64, 64, 3), "roughness": (4, 4, 4, 1)}:
+        raise AssertionError(f"final parameter shapes {shapes}")
+    if [s["albedo"][0] for s in seen] != [8, 16, 32, 64] or [s["sdf"][0] for s in seen] != [16, 32, 64, 64]:
+        raise AssertionError(f"parameter shapes by iteration: {seen}")
+    albedo, rough = result.params["albedo"], result.params["roughness"]
+    if not all(bool(torch.isfinite(v).all()) for v in (*result.params.values(), *result.ema.values())):
+        raise AssertionError("non-finite parameters")
+    if not (float(albedo.min()) >= 1e-5 and float(albedo.max()) <= 1.0
+            and float(rough.min()) >= 0.1 and float(rough.max()) <= 0.8):
+        raise AssertionError("texture values outside their clamps")
+    albedo_moved = float((albedo - 0.5).abs().max())
+    if not albedo_moved > 1e-3:
+        raise AssertionError(f"the albedo did not move off its start (max |albedo - 0.5| = {albedo_moved})")
+    for c in (counts, turntable_counts):
+        if c["sphere_trace"] == 0 or c["grid_eval_grad"] == 0:
+            raise AssertionError(f"a kernel of the textured path was not launched: {c}")
+    if counts["redistance"] < TEX_ITERS:
+        raise AssertionError(f"redistance kernel: {counts['redistance']} calls in {TEX_ITERS} iterations")
+    if len(pngs) != 1 or png_shapes != [(512, 512, 3)] or not all(
+            f["finite"] and 0.01 < f["coverage"] < 0.99 and f["shape"] == [512, 512, 4] for f in frames):
+        raise AssertionError(f"turntable frame: {pngs} {png_shapes} {frames}")
+    emit({
+        "phase": "textured", "scene": TEX_SCENE, "opt_config": TEX_CONFIG, "method": method.name,
+        "iterations": TEX_ITERS, "ref_spp": REF_SPP, "target_res": 128, "upsample_iter": [1, 2],
+        "tex_upsample_iter": [1, 2, 3], "loss": result.loss_values, "iter_seconds": result.iter_seconds,
+        "shapes_by_iteration": seen, "seconds_total": seconds, "peak_memory_bytes": peak,
+        "kernel_launches": counts, "albedo_range": [float(albedo.min()), float(albedo.max())],
+        "albedo_max_move": albedo_moved, "roughness_range": [float(rough.min()), float(rough.max())],
+        "checkpoints": files, "turntable_seconds": turntable_seconds,
+        "turntable_frame_seconds": [f["seconds"] for f in frames], "turntable_coverage": [f["coverage"] for f in frames],
+        "turntable_kernel_launches": turntable_counts,
+    })
+    return result, counts, turntable_counts
+
+
+GOLDEN_NAMES = ("trefoil", "blob", "cinquefoil")
+
+
+def golden_render(name, device):
+    """The render of ``tests/test_assets.py``'s golden regression: the 64³
+    asset, two 64² cameras, view 0, seed 0, 16 spp, primal."""
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import target_sdf
+
+    scene = Scene.create(target_sdf(name, 64, device=device),
+                         cameras=regular_cameras(2, resx=64, resy=64, device=device), device=device)
+    return render(scene, 0, seed=0, cfg=RenderConfig(integrator="sdf_direct_reparam", spp=16), mode="primal",
+                  device=device)[..., :3].cpu().numpy()
+
+
+def phase_golden(device):
+    """Each asset's render on the card against the JAX package's golden EXR at
+    that test's bound (atol 5e-4, rtol 1e-3).  Where pixels miss it, they are
+    listed with the same render on the host (the plain versions of K1 and
+    K2) before the phase fails."""
+    import numpy as np
+
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import ASSET_DIR
+    from differentiable_sdf_rendering_tpu_torch.utils import io
+
+    out, failed = {}, []
+    for name in GOLDEN_NAMES:
+        img = golden_render(name, device)
+        golden = io.read_exr(os.path.join(ASSET_DIR, "golden", f"{name}_direct_s0.exr"))
+        diff = np.abs(img - golden)
+        miss = diff > 5e-4 + 1e-3 * np.abs(golden)
+        out[name] = {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+                     "pixels_beyond_bound": int(miss.any(-1).sum())}
+        if miss.any():
+            host = golden_render(name, "cpu")
+            ys, xs = np.nonzero(miss.any(-1))
+            out[name]["missed"] = [{"pixel": [int(y), int(x)], "card": img[y, x].tolist(), "golden": golden[y, x].tolist(),
+                                    "host": host[y, x].tolist()} for y, x in zip(ys[:20], xs[:20])]
+            out[name]["host_max_abs_diff"] = float(np.abs(host - golden).max())
+            failed.append(name)
+    emit({"phase": "golden", "atol": 5e-4, "rtol": 1e-3, "renders": out})
+    if failed:
+        raise AssertionError(f"golden images missed on the card: {failed}")
+    return out
+
+
+def texture_cost_per_view(device, result):
+    """Launches and device ms (``torch.profiler``) and wall seconds of one
+    view of the textured training step at the run's final state, with the
+    albedo and roughness volumes bound and with the same step on the SDF
+    alone (the principled BSDF's constants): what the attached texture
+    lookups add to a view."""
+    import dataclasses
+
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
+    from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    opt_cfg, _ = get_opt_config(TEX_CONFIG)
+    method = get_config("warp")
+    scene = result.scene
+    cams = shape_opt._make_cameras(opt_cfg, opt_cfg.resx, opt_cfg.resy, device)
+    base = Scene(sdf=GridSDF.create(torch.zeros_like(result.params["sdf"])), bsdf=scene.bsdf, emitter=scene.emitter,
+                 cameras=cams)
+    cfg_grad = RenderConfig(spp=method.spp, warp=method.warp_config(), trace=method.trace_params())
+    cfg_primal = dataclasses.replace(cfg_grad, spp=method.spp * method.primal_spp_mult)
+    ref = torch.zeros(1, opt_cfg.resy, opt_cfg.resx, 3, device=device)
+    out = {}
+    for name, params in (("with_textures", result.params), ("sdf_only", {"sdf": result.params["sdf"]})):
+        def view():
+            shape_opt._view_batch_loss_grads(params, base, [0], [0], [13], ref, loss_name=opt_cfg.loss,
+                                             cfg_primal=cfg_primal, cfg_grad=cfg_grad, batch=1)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, device_ms, sessions = cuda_launches_per_call(view)
+        out[name] = {"wall_seconds": wall, "cuda_launches": launches, "device_ms": device_ms,
+                     "profiler_sessions": sessions}
+    return out
+
+
+def phase_launch_count(device, k1=True, textured=None):
     """CUDA launches (kernels and memsets, as ``torch.profiler`` records
     them) of one ``redistance`` call on the perturbed sphere at every size of
     ``REDISTANCE_SIZES`` (the kernel alone: at most 2) with their device
@@ -957,20 +1220,22 @@ def phase_launch_count(device, k1=True):
     from differentiable_sdf_rendering_tpu_torch.ops import redistance as rd
     from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
 
-    redistance_launches, device_ms = {}, {}
+    redistance_launches, device_ms, sessions = {}, {}, {}
     for res in REDISTANCE_SIZES:
         phi = torch.as_tensor(level_sets(res, np.random.default_rng(res))[0]["perturbed_sphere"], device=device)
-        redistance_launches[res], device_ms[res] = cuda_launches_per_call(lambda: rd.redistance(phi))
+        redistance_launches[res], device_ms[res], sessions[res] = cuda_launches_per_call(lambda: rd.redistance(phi))
     if not all(0 < n <= 2 for n in redistance_launches.values()):
         raise AssertionError(f"CUDA launches of one redistance call: {redistance_launches}")
     line = {"phase": "launch_count", "redistance_cuda_launches_per_call": redistance_launches,
-            "redistance_device_ms_per_call": device_ms}
+            "redistance_device_ms_per_call": device_ms, "redistance_profiler_sessions": sessions}
     launches = None
     if k1:
         name, sdf, o, d, params, lanes_kw, _ = next(path_ray_sets(device))
         with torch.no_grad():
-            launches, _ = cuda_launches_per_call(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw))
-        line.update(set=name, sphere_trace_cuda_launches_per_call=launches)
+            launches, _, k1_sessions = cuda_launches_per_call(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw))
+        line.update(set=name, sphere_trace_cuda_launches_per_call=launches, sphere_trace_profiler_sessions=k1_sessions)
+    if textured is not None:
+        line["textured_view"] = texture_cost_per_view(device, textured)
     emit(line)
     return launches, redistance_launches
 
@@ -1006,12 +1271,15 @@ def main(argv):
     phase_reference(device)
     train_counts = phase_train(device)
     optimize_counts, turntable_counts = phase_cli(device)
-    k1_launches, redistance_launches = phase_launch_count(device)
+    textured, textured_counts, textured_turntable_counts = phase_textured(device)
+    phase_golden(device)
+    k1_launches, redistance_launches = phase_launch_count(device, textured=textured)
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
     # into the kernel during the train phase, ``cli_launches`` during the two
-    # CLI runs; ``cuda_launches`` the CUDA launches of the redistancing calls
+    # CLI runs, ``textured_launches`` during the textured run and its
+    # turntable frame; ``cuda_launches`` the CUDA launches of the redistancing calls
     # (counted by the kernel's C entry).  No single PyTorch call computes any
     # of these functions, so ``library_ms`` is null.
     main_res = by_res[64]
@@ -1024,6 +1292,7 @@ def main(argv):
             "replaces": "differentiable_sdf_rendering_tpu/ops/pallas_redistance.py:113",
             "launches": train_counts["redistance"], "cuda_launches": train_counts["redistance_cuda_launches"],
             "cli_launches": optimize_counts["redistance"] + turntable_counts["redistance"],
+            "textured_launches": textured_counts["redistance"] + textured_turntable_counts["redistance"],
             "max_abs_err": max_err, "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
             "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"], "library_ms": None,
             "wrapper_ms": main_res["wrapper_ms"], "wrapper_cuda_launches": redistance_launches[64],
@@ -1037,6 +1306,7 @@ def main(argv):
             "replaces": "scripts/trace_probe_r3.py:360",
             "launches": train_counts["sphere_trace"],
             "cli_launches": optimize_counts["sphere_trace"] + turntable_counts["sphere_trace"],
+            "textured_launches": textured_counts["sphere_trace"] + textured_turntable_counts["sphere_trace"],
             "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*trace.values(), sphere]),
             "hit_bits_differ_share": max(c["hit_bits_differ_share"] for c in [*trace.values(), sphere]),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1054,6 +1324,7 @@ def main(argv):
                               "scripts/gather_probe.py:262"],
             "launches": train_counts["grid_eval_grad"],
             "cli_launches": optimize_counts["grid_eval_grad"] + turntable_counts["grid_eval_grad"],
+            "textured_launches": textured_counts["grid_eval_grad"] + textured_turntable_counts["grid_eval_grad"],
             "max_abs_err": max(c["max_abs_diff"] for c in grid_eval.values()),
             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": None,

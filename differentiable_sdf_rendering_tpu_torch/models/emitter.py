@@ -127,6 +127,25 @@ class GridEnvmap:
         )
 
     @classmethod
+    def from_image(cls, path: str, scale: float = 1.0, device=None):
+        """Load an equirectangular environment map from an ``.exr`` file
+        (linear radiance) or an 8-bit PNG (normalised, then inverse gamma
+        2.2); a grey image is expanded to RGB.  The tables are built by
+        :meth:`create`."""
+        from ..utils import io as uio
+
+        if path.endswith(".exr"):
+            img = uio.read_exr(path)
+        else:
+            img = (uio.read_png(path).astype(np.float32) / 255.0) ** 2.2
+        img = np.asarray(img, np.float32)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        return cls.create(img[..., :3] * np.float32(scale), device=device)
+
+    @classmethod
     def _cell_index(cls, image, d):
         h, w, _ = image.shape
         theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))

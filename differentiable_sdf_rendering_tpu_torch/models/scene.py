@@ -12,7 +12,7 @@ from typing import Any
 
 from .. import resolve_device, same_device
 from ..ops.sdf import GridSDF
-from .bsdf import DiffuseBSDF
+from .bsdf import DiffuseBSDF, PrincipledBSDF
 from .camera import PerspectiveCamera, regular_cameras
 from .emitter import ConstantEmitter
 
@@ -22,7 +22,7 @@ __all__ = ["Scene"]
 @dataclasses.dataclass(frozen=True)
 class Scene:
     sdf: GridSDF
-    bsdf: DiffuseBSDF
+    bsdf: DiffuseBSDF | PrincipledBSDF
     emitter: Any
     cameras: PerspectiveCamera
     # Auxiliary triangle mesh and finite-position area emitter of the JAX

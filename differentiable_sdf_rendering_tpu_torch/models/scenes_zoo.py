@@ -1,23 +1,28 @@
-"""Named scenes: procedural target SDFs + the default lighting/BSDF rig.
+"""Named scenes: target SDFs + the lighting/BSDF rigs of reconstruction runs.
 
-Counterpart of the JAX package's ``models/scenes_zoo.py``, procedural branch:
-analytic target SDFs (redistanced onto grids) registered under the
-reference's scene names, and the default rig (diffuse BSDF under the
-procedural gradient sky).  ``.vol`` assets and the mesh / area-light rigs are
-not implemented here.
+Counterpart of the JAX package's ``models/scenes_zoo.py``: the checked-in
+``.vol`` assets (``scenes/assets/sdfs/<name>_<res>.vol``, or a caller's scene
+directory), analytic target SDFs registered under the reference's scene
+names (both redistanced onto grids), and the per-scene rigs: a diffuse or
+principled BSDF under the procedural gradient sky or, for a ``-hdr`` scene,
+the checked-in HDR envmap.  The rigs with a mesh, an area light or a vMF
+emitter are not implemented here.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from .. import resolve_device
 from ..ops.initializers import voxel_centers
 from ..ops.redistance import redistance
-from .bsdf import DiffuseBSDF
-from .emitter import make_gradient_envmap
+from ..utils.io import read_vol
+from .bsdf import DiffuseBSDF, PrincipledBSDF
+from .emitter import GridEnvmap, make_gradient_envmap
 
-__all__ = ["target_sdf", "scene_rig_full", "scene_rig", "SCENE_NAMES"]
+__all__ = ["target_sdf", "scene_rig_full", "scene_rig", "studio_hdr_envmap", "SCENE_NAMES", "ASSET_DIR"]
 
 
 def _vec(v, like):
@@ -137,23 +142,47 @@ _PROCEDURAL = {
 # emitter: named so that asking for one says what is missing.
 _UNPORTED_RIGS = ("torus-shadow", "mirror-opt", "plane_area", "plane_red_object")
 
+
+def _check_rig(scene_name: str):
+    if scene_name in _UNPORTED_RIGS:
+        raise NotImplementedError(f"the rig of scene '{scene_name}' (mesh, area light or vMF emitter) is not ported")
+
 SCENE_NAMES = sorted(_PROCEDURAL)
 
+#: the checked-in assets: ``sdfs/<name>_<res>.vol``, ``envmaps/studio_sky.exr``
+#: and the golden images
+ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "scenes", "assets")
 
-def _check_scene(scene_name: str):
-    if scene_name in _UNPORTED_RIGS or scene_name.endswith("-hdr") or "principled" in scene_name:
-        raise NotImplementedError(f"the rig of scene '{scene_name}' is not ported")
-    if scene_name not in _PROCEDURAL:
-        raise ValueError(f"Unknown scene '{scene_name}'; valid: {SCENE_NAMES}")
+
+def studio_hdr_envmap(device=None):
+    """The checked-in equirect HDR envmap (``envmaps/studio_sky.exr``) as a
+    :class:`GridEnvmap`; the procedural gradient sky where the file is
+    absent, as in the JAX package."""
+    path = os.path.join(ASSET_DIR, "envmaps", "studio_sky.exr")
+    if os.path.exists(path):
+        return GridEnvmap.from_image(path, device=device)
+    return make_gradient_envmap(device=device)
 
 
 def target_sdf(scene_name: str, res: int = 128, scene_dir: str | None = None, device=None):
-    """Target SDF grid for a named scene: the procedural shape sampled at the
-    voxel centers and redistanced to a valid SDF."""
-    if scene_dir is not None:
-        raise NotImplementedError(".vol scene assets are not ported")
-    _check_scene(scene_name)
-    pts = voxel_centers(res, resolve_device(device))
+    """Target SDF grid for a named scene: the ``.vol`` asset
+    ``sdfs/<name>_<res>.vol`` from ``scene_dir`` or the checked-in
+    ``scenes/assets`` if there is one, else the procedural stand-in sampled at
+    the voxel centers; redistanced to a valid SDF.  A ``-hdr`` suffix (a
+    lighting variant) is ignored."""
+    device = resolve_device(device)
+    if scene_name.endswith("-hdr"):
+        scene_name = scene_name[: -len("-hdr")]
+    _check_rig(scene_name)
+    for sdir in (scene_dir, ASSET_DIR):
+        if sdir is None:
+            continue
+        vol = os.path.join(sdir, "sdfs", f"{scene_name}_{res}.vol")
+        if os.path.exists(vol):
+            return redistance(torch.from_numpy(read_vol(vol)[..., 0].copy()).to(device))
+    if scene_name not in _PROCEDURAL:
+        raise ValueError(f"Unknown scene '{scene_name}'; valid: {SCENE_NAMES} or an asset sdfs/<name>_{res}.vol")
+    pts = voxel_centers(res, device)
     d = _PROCEDURAL[scene_name](pts.reshape(-1, 3)).reshape(res, res, res)
     return redistance(d)
 
@@ -161,17 +190,17 @@ def target_sdf(scene_name: str, res: int = 128, scene_dir: str | None = None, de
 def scene_rig_full(scene_name: str, param_keys=("sdf",), device=None):
     """Per-scene emitter + BSDF.  Returns a dict with keys ``bsdf``,
     ``emitter``, ``area_emitter``, ``mesh`` (the last two always ``None``
-    here)."""
-    _check_scene(scene_name)
-    if tuple(param_keys) != ("sdf",):
-        raise NotImplementedError("texture parameters (albedo, roughness) are not ported")
+    here).  A scene name holding ``principled``, or more than two optimized
+    parameters, gives a :class:`PrincipledBSDF`; a ``-hdr`` name the HDR
+    envmap."""
+    _check_rig(scene_name)
     device = resolve_device(device)
-    return {
-        "bsdf": DiffuseBSDF.create(albedo=(0.8, 0.8, 0.8), device=device),
-        "emitter": make_gradient_envmap(device=device),
-        "area_emitter": None,
-        "mesh": None,
-    }
+    if "principled" in scene_name or len(param_keys) > 2:
+        bsdf = PrincipledBSDF.create(device=device)
+    else:
+        bsdf = DiffuseBSDF.create(albedo=(0.8, 0.8, 0.8), device=device)
+    emitter = studio_hdr_envmap(device) if scene_name.endswith("-hdr") else make_gradient_envmap(device=device)
+    return {"bsdf": bsdf, "emitter": emitter, "area_emitter": None, "mesh": None}
 
 
 def scene_rig(scene_name: str, param_keys=("sdf",), device=None):

@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``opt/opt_configs.py``: named configs as
 dicts with ``parent`` inheritance, resolved by :func:`process_config_dicts`,
 instantiated into :class:`SdfConfig` objects, and overridable from the
-command line (``--key=value``).  Registered here: ``base``, ``no-tex-6`` and
-``no-tex-12``; the JAX package's other named configs are not.
+command line (``--key=value``).  All of the JAX package's names are
+registered: its 39 named configs and the 32 shifted-camera variants.  The
+rigs of ``torus-shadow-1``, ``mirror-opt-1`` and ``mirror-opt-hq`` are not
+ported: their names resolve, and ``optimize_shape`` raises where it builds
+the rig.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import dataclasses
 import math
 
 from .configs import apply_cmdline_args
-from .variables import SdfVariableSpec
+from .variables import SdfVariableSpec, VolumeVariableSpec
 
 __all__ = ["SdfConfig", "get_opt_config", "is_valid_opt_config", "OPT_CONFIG_NAMES"]
 
@@ -48,10 +51,10 @@ class SdfConfig:
             self.batch_size = self.n_sensors
 
     def variables(self):
-        """Build the variable specs (the SDF grid only)."""
-        if tuple(self.param_keys) != ("sdf",):
-            raise NotImplementedError("texture parameters (albedo, roughness) are not ported")
-        return [
+        """Build the variable specs: the SDF grid, then an albedo volume
+        when the second parameter key names one, then a roughness volume
+        when the third is ``roughness`` (its schedule is fixed)."""
+        out = [
             SdfVariableSpec(
                 key="sdf",
                 resolution=self.sdf_res,
@@ -60,6 +63,33 @@ class SdfConfig:
                 regularizer_weight=self.sdf_regularizer_weight,
             )
         ]
+        if len(self.param_keys) > 1 and self.param_keys[1] in ("albedo", "base_color", "reflectance"):
+            out.append(
+                VolumeVariableSpec(
+                    key="albedo",
+                    resolution=self.sdf_res,
+                    channels=3,
+                    init_value=self.tex_init_value,
+                    upsample_iter=tuple(self.tex_upsample_iter),
+                    beta=self.param_averaging_beta,
+                    lr=self.texture_lr,
+                    clamp=(1e-5, 1.0),
+                )
+            )
+        if len(self.param_keys) > 2 and self.param_keys[2] == "roughness":
+            out.append(
+                VolumeVariableSpec(
+                    key="roughness",
+                    resolution=max(self.sdf_res // 4, 4),
+                    channels=1,
+                    init_value=0.5,
+                    upsample_iter=(128, 180),
+                    beta=self.param_averaging_beta,
+                    lr=self.texture_lr,
+                    clamp=(0.1, 0.8),
+                )
+            )
+        return out
 
     # ---- resolution schedule ----
     @property
@@ -94,7 +124,75 @@ _CONFIG_DICTS = [
          render_upsample_iter=(180,), upsample_iter=(64, 128, 180)),
     dict(name="no-tex-12", parent="no-tex-6", use_multiscale_rendering=False,
          n_sensors=12, upsample_iter=(64, 128), batch_size=6),
+    dict(name="torus-shadow-1", parent="no-tex-12", scene_name="torus-shadow",
+         use_multiscale_rendering=True, render_upsample_iter=(220,),
+         upsample_iter=(128, 140, 180, 220), sdf_res=128, resx=256, resy=256, n_sensors=1),
+    dict(name="mirror-opt-1", parent="no-tex-12", scene_name="mirror-opt",
+         upsample_iter=(128, 220), sdf_res=64, n_sensors=1),
+    dict(name="mirror-opt-hq", parent="no-tex-12", scene_name="mirror-opt",
+         use_multiscale_rendering=True, render_upsample_iter=(220,),
+         upsample_iter=(128, 180, 220), sdf_res=128, resx=256, resy=256, n_sensors=1),
+    dict(name="no-tex-3", parent="no-tex-6", n_sensors=3),
+    dict(name="diffuse-6", parent="base", n_sensors=6, use_multiscale_rendering=False,
+         upsample_iter=(128, 180), param_keys=("sdf", "albedo")),
+    dict(name="principled-6", parent="diffuse-6",
+         param_keys=("sdf", "albedo", "roughness")),
+    dict(name="diffuse-12", parent="diffuse-6", n_sensors=12, batch_size=6),
+    dict(name="principled-12", parent="principled-6", n_sensors=12, batch_size=6,
+         upsample_iter=(128, 180)),
+    dict(name="diffuse-12-hq", parent="diffuse-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220,), upsample_iter=(128, 180, 220), sdf_res=128,
+         resx=256, resy=256),
+    dict(name="diffuse-12-hqq", parent="diffuse-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220, 300), upsample_iter=(128, 180, 220, 270),
+         sdf_res=256, resx=512, resy=512),
+    dict(name="diffuse-16-hq", parent="diffuse-12-hq", n_sensors=16),
+    dict(name="diffuse-20-hq", parent="diffuse-12-hq", n_sensors=20),
+    dict(name="diffuse-32-hq", parent="diffuse-12-hq", n_sensors=32),
+    dict(name="no-tex-12-hq", parent="no-tex-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220,), upsample_iter=(128, 180, 220), sdf_res=128,
+         resx=256, resy=256),
+    dict(name="no-tex-1-hq", parent="no-tex-12-hq", n_sensors=1),
+    dict(name="no-tex-2-hq", parent="no-tex-12-hq", n_sensors=2),
+    dict(name="no-tex-3-hq", parent="no-tex-12-hq", n_sensors=3),
+    dict(name="no-tex-6-hq", parent="no-tex-12-hq", n_sensors=6),
+    dict(name="no-tex-32-hq", parent="no-tex-12-hq", n_sensors=32),
+    dict(name="no-tex-1", parent="no-tex-12", n_sensors=1),
+    dict(name="no-tex-2", parent="no-tex-12", n_sensors=2),
+    dict(name="no-tex-32", parent="no-tex-12", n_sensors=32),
+    dict(name="no-tex-32-hq-l1", parent="no-tex-32-hq", loss="l1"),
+    dict(name="no-tex-32-hq-mape", parent="no-tex-32-hq", loss="mape"),
+    dict(name="no-tex-32-hq-no-reg", parent="no-tex-32-hq",
+         sdf_regularizer_weight=0.0, loss="l1"),
+    dict(name="no-tex-6-hqq", parent="no-tex-6", use_multiscale_rendering=True,
+         render_upsample_iter=(220, 300), upsample_iter=(128, 180, 220, 270),
+         sdf_res=256, resx=512, resy=512),
+    dict(name="no-tex-12-hqq", parent="no-tex-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220, 300), upsample_iter=(128, 180, 220, 270),
+         sdf_res=256, resx=512, resy=512),
+    dict(name="no-tex-32-hqq", parent="no-tex-12-hqq", n_sensors=32),
+    dict(name="principled-12-hq", parent="principled-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220,), upsample_iter=(128, 180, 220), sdf_res=128,
+         resx=256, resy=256),
+    dict(name="principled-12-hqq", parent="principled-12", use_multiscale_rendering=True,
+         render_upsample_iter=(220, 300), upsample_iter=(128, 180, 220, 270),
+         sdf_res=256, resx=512, resy=512),
+    dict(name="principled-16-hq", parent="principled-12-hq", n_sensors=16),
+    dict(name="principled-16-hqq", parent="principled-12-hqq", n_sensors=16),
+    dict(name="principled-32-hq", parent="principled-16-hq", n_sensors=32),
+    dict(name="principled-32-hqq", parent="principled-16-hqq", n_sensors=32),
+    dict(name="principled-48-hqq", parent="principled-16-hqq", n_sensors=48),
+    dict(name="principled-64-hqq", parent="principled-16-hqq", n_sensors=64),
 ]
+
+# Shifted-camera variants for the variance figure
+_N_SHIFTS = 8
+for _shift in range(_N_SHIFTS):
+    for _n in (2, 3, 6, 12):
+        _CONFIG_DICTS.append(
+            dict(name=f"no-tex-{_n}-hq-{_shift}", parent="no-tex-12-hq",
+                 n_sensors=_n, angle_shift=_shift / _N_SHIFTS)
+        )
 
 
 def process_config_dicts(configs):

@@ -11,8 +11,11 @@ Semantics kept from the reference:
     separate ``spp``-sample reparameterized render with its own seed;
   * strided view batches, per-view loss / batch_size;
   * seed bookkeeping ``seed += 1 + n_sensors`` per view;
-  * Laplacian regularizer, grad clamp ±0.1, NaN suppression;
-  * adaptive LR ``32/res · lr/(1+0.02 i)``; Adam state reset on upsampling;
+  * Laplacian regularizer on the SDF, its grad clamp ±0.1, NaN suppression;
+  * adaptive LR ``32/res · lr/(1+0.02 i)`` for the SDF, a constant one for
+    texture volumes; Adam state reset on upsampling (cubic for the SDF,
+    trilinear for a texture);
+  * albedo and roughness volumes bound to the BSDF's textures;
   * EMA of parameters;
   * with an ``output_dir``: ``params/<key>-data-NNNN.vol`` every
     ``checkpoint_frequency`` iterations and at the last one, the EMA in
@@ -38,7 +41,7 @@ from ..models.integrator import MAX_LANES, RenderConfig, lane_chunks, render_chu
 from ..models.scene import Scene
 from ..models.scenes_zoo import scene_rig_full, target_sdf
 from ..ops.film import BORDER, develop
-from ..ops.initializers import upsample_sdf
+from ..ops.initializers import upsample_sdf, upsample_volume
 from ..ops.sdf import GridSDF
 from ..utils.io import dump_metadata, read_vol, write_vol
 from . import losses as losses_mod
@@ -75,7 +78,17 @@ def _make_cameras(opt_cfg: SdfConfig, resx, resy, device):
 
 
 def _build_scene(base: Scene, params: dict) -> Scene:
-    return base.replace(sdf=base.sdf.with_data(params["sdf"]))
+    """``base`` with the parameters bound: the SDF grid, and the albedo /
+    roughness volumes as the BSDF's textures."""
+    bsdf = base.bsdf
+    if "albedo" in params:
+        if hasattr(bsdf, "base_color_tex"):
+            bsdf = bsdf.replace(base_color_tex=params["albedo"])
+        else:
+            bsdf = bsdf.replace(albedo_tex=params["albedo"])
+    if "roughness" in params and hasattr(bsdf, "roughness_tex"):
+        bsdf = bsdf.replace(roughness_tex=params["roughness"])
+    return base.replace(sdf=base.sdf.with_data(params["sdf"]), bsdf=bsdf)
 
 
 @torch.no_grad()
@@ -286,7 +299,8 @@ def optimize_shape(
             cams = _make_cameras(opt_cfg, res[0], res[1], device)
             for s in specs:
                 if s.upsample_iter and i in s.upsample_iter:
-                    params[s.key] = upsample_sdf(params[s.key])
+                    up = upsample_sdf if isinstance(s, SdfVariableSpec) else upsample_volume
+                    params[s.key] = up(params[s.key])
                     # Adam state (incl. the per-key step counter t) resets on
                     # shape change
                     sub = adam_init({s.key: params[s.key]})
@@ -306,7 +320,11 @@ def optimize_shape(
                 seed += 1 + opt_cfg.n_sensors
             refs = refs_pyramid[res][view_indices]
 
-            lrs = {s.key: s.lr_for(method_cfg.learning_rate, i, params[s.key].shape[0]) for s in specs}
+            lrs = {
+                s.key: s.lr_for(method_cfg.learning_rate, i, params[s.key].shape[0])
+                if isinstance(s, SdfVariableSpec) else s.lr_for(method_cfg.learning_rate, i)
+                for s in specs
+            }
 
             loss, grads = _view_batch_loss_grads(
                 params, base, view_indices, seeds, seeds_grad, refs,

@@ -1,13 +1,18 @@
 """Optimized-variable lifecycle: init, gradient/param validation, EMA.
 
-Counterpart of the JAX package's ``opt/variables.py`` (``SdfVariableSpec``):
-specs are frozen dataclasses; all state (the grid, its EMA mean) lives in
-plain dicts owned by the training loop.  Per-iteration semantics:
+Counterpart of the JAX package's ``opt/variables.py`` (``SdfVariableSpec``,
+``VolumeVariableSpec``): specs are frozen dataclasses; all state (the grids,
+their EMA means) lives in plain dicts owned by the training loop.
+Per-iteration semantics:
 
   * SDF: sphere init at ``res / 2^#upsamples``; cubic upsample at the
     scheduled iterations; bbox clamp ``max(sdf, box₀.₄₉)``; **redistance
     every iteration**; adaptive LR ``32/res · lr/(1+0.02·i)`` (+halvings at
     480/500); gradient NaN-suppression and clamp to ±0.1.
+  * Volume textures (albedo, roughness): constant init at
+    ``res / 2^#upsamples`` (at least 2); trilinear upsample; value clamps
+    (albedo [1e-5, 1], roughness [0.1, 0.8]); gradient NaN-suppression
+    only; their own LR or the global one, without decay.
   * EMA of parameters with per-variable β, reset on shape change.
 """
 
@@ -18,12 +23,50 @@ import dataclasses
 import torch
 
 from .. import resolve_device
-from ..ops.initializers import create_sphere_sdf, upsample_sdf
+from ..ops.initializers import create_sphere_sdf, upsample_sdf, upsample_volume
 from ..ops.redistance import redistance
 from ..ops.sdf import BoxSDF
 from .adam import simple_lr_decay
 
-__all__ = ["SdfVariableSpec", "box_sdf_grid", "ema_update"]
+__all__ = ["SdfVariableSpec", "VolumeVariableSpec", "box_sdf_grid", "ema_update"]
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumeVariableSpec:
+    """A (Z, Y, X, C) texture volume (albedo or roughness)."""
+
+    key: str
+    resolution: int             # final (Z=Y=X) resolution
+    channels: int = 3
+    init_value: float = 0.5
+    upsample_iter: tuple = (100, 128, 160, 170, 192)
+    beta: float | None = 0.95
+    lr: float | None = None     # None → the global LR
+    clamp: tuple | None = None  # (lo, hi) value clamp
+
+    @property
+    def initial_resolution(self):
+        return self.resolution // 2 ** len(self.upsample_iter or ())
+
+    def initialize(self, device=None):
+        r = max(self.initial_resolution, 2)
+        return torch.full((r, r, r, self.channels), self.init_value, dtype=torch.float32,
+                          device=resolve_device(device))
+
+    @torch.no_grad()
+    def validate(self, data, i):
+        """Upsample (if scheduled) + value clamp."""
+        if self.upsample_iter and i in self.upsample_iter:
+            data = upsample_volume(data)
+        if self.clamp is not None:
+            data = torch.clamp(data, self.clamp[0], self.clamp[1])
+        return data
+
+    def validate_gradient(self, g):
+        return torch.where(torch.isnan(g), torch.zeros_like(g), g)
+
+    def lr_for(self, lr0, i):
+        return self.lr if self.lr is not None else lr0
 
 
 def box_sdf_grid(res, device=None):

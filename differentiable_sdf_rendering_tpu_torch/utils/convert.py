@@ -9,12 +9,16 @@ scene dict:
   ``sdf``       (Z, Y, X) f32 grid            ``sdf_p``  (3,) f32 (optional)
   ``cam_origin`` (V, 3)  ``cam_rot`` (V, 3, 3)  ``cam_tan_half_fov`` (V,)
   ``cam_resx``, ``cam_resy``  ints
-  ``albedo``    (3,) f32
+  BSDF, ``bsdf`` = ``"diffuse"`` (the default when absent) or ``"principled"``:
+    diffuse:    ``albedo`` (3,) f32 [+ ``albedo_tex`` (Z, Y, X, 3)]
+    principled: ``base_color`` (3,), ``roughness`` () f32, ``specular`` float
+                [+ ``base_color_tex`` (Z, Y, X, 3), ``roughness_tex`` (Z, Y, X, 1)]
   emitter, one of:
     ``envmap_image`` (H, W, 3) [+ ``envmap_pdf_table``, ``envmap_alias_prob``,
     ``envmap_alias_idx`` (H·W,) — rebuilt from the image when absent]
     ``radiance`` (3,)  — constant emitter
-params dict:      ``{key: array}``
+params dict:      ``{key: array}``: ``sdf`` (Z, Y, X), ``albedo`` and
+                  ``roughness`` (Z, Y, X, C)
 adam state dict:  ``{"m": {key: array}, "v": {key: array}, "t": {key: int}}``
 """
 
@@ -23,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.bsdf import DiffuseBSDF
+from ..models.bsdf import DiffuseBSDF, PrincipledBSDF
 from ..models.camera import PerspectiveCamera
 from ..models.emitter import ConstantEmitter, GridEnvmap
 from ..models.scene import Scene
@@ -44,6 +48,35 @@ def _t(a, device, dtype=torch.float32):
 
 def _n(t):
     return t.detach().cpu().numpy()
+
+
+def _opt_t(d, key, device):
+    return _t(d[key], device) if d.get(key) is not None else None
+
+
+def _bsdf_from_numpy(d: dict, device):
+    kind = d.get("bsdf", "diffuse")
+    if kind == "diffuse":
+        return DiffuseBSDF(albedo=_t(d["albedo"], device), albedo_tex=_opt_t(d, "albedo_tex", device))
+    if kind == "principled":
+        return PrincipledBSDF(
+            base_color=_t(d["base_color"], device), roughness=_t(d["roughness"], device),
+            base_color_tex=_opt_t(d, "base_color_tex", device), roughness_tex=_opt_t(d, "roughness_tex", device),
+            specular=float(d["specular"]),
+        )
+    raise ValueError(f"unknown BSDF kind '{kind}'")
+
+
+def _bsdf_to_numpy(bsdf) -> dict:
+    if isinstance(bsdf, PrincipledBSDF):
+        d = {"bsdf": "principled", "base_color": _n(bsdf.base_color), "roughness": _n(bsdf.roughness),
+             "specular": bsdf.specular}
+        texs = {"base_color_tex": bsdf.base_color_tex, "roughness_tex": bsdf.roughness_tex}
+    else:
+        d = {"bsdf": "diffuse", "albedo": _n(bsdf.albedo)}
+        texs = {"albedo_tex": bsdf.albedo_tex}
+    d.update({k: _n(v) for k, v in texs.items() if v is not None})
+    return d
 
 
 def scene_from_numpy(d: dict, device) -> Scene:
@@ -69,7 +102,7 @@ def scene_from_numpy(d: dict, device) -> Scene:
             emitter = GridEnvmap.create(np.asarray(d["envmap_image"]), device=device)
     else:
         emitter = ConstantEmitter(radiance=_t(d["radiance"], device))
-    return Scene(sdf=sdf, bsdf=DiffuseBSDF(albedo=_t(d["albedo"], device)), emitter=emitter, cameras=cams)
+    return Scene(sdf=sdf, bsdf=_bsdf_from_numpy(d, device), emitter=emitter, cameras=cams)
 
 
 def scene_to_numpy(scene: Scene) -> dict:
@@ -82,7 +115,7 @@ def scene_to_numpy(scene: Scene) -> dict:
         "cam_tan_half_fov": _n(c.tan_half_fov),
         "cam_resx": c.resx,
         "cam_resy": c.resy,
-        "albedo": _n(scene.bsdf.albedo),
+        **_bsdf_to_numpy(scene.bsdf),
     }
     if isinstance(scene.emitter, GridEnvmap):
         e = scene.emitter

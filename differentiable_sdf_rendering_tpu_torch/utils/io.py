@@ -1,10 +1,11 @@
-"""File I/O: Mitsuba ``.vol`` volumes, PNG images, run metadata.
+"""File I/O: Mitsuba ``.vol`` volumes, PNG and EXR images, run metadata.
 
 Counterpart of the JAX package's ``utils/io.py`` (numpy only, so the port
 keeps its own copy): the ``.vol`` binary format (header ``VOL`` v3, float32
 grid, x-fastest layout), so that checkpoints of the two packages are
-interchangeable, a minimal PNG codec, and the ``metadata.json`` dump.  The
-EXR codec is not ported.
+interchangeable, a minimal PNG codec, the float32 uncompressed-scanline EXR
+codec of the checked-in HDR envmap and golden images, and the
+``metadata.json`` dump.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["read_vol", "write_vol", "write_png", "read_png", "dump_metadata", "tonemap"]
+__all__ = ["read_vol", "write_vol", "write_png", "read_png", "read_exr", "write_exr", "dump_metadata", "tonemap"]
 
 
 def read_vol(path: str) -> np.ndarray:
@@ -155,6 +156,108 @@ def read_png(path: str) -> np.ndarray:
         out[row] = cur.astype(np.uint8)
         prev = cur
     return out.reshape(h, w, c)
+
+
+_EXR_MAGIC = 20000630
+_EXR_CH_NAMES = {1: ("Y",), 3: ("R", "G", "B"), 4: ("R", "G", "B", "A")}
+
+
+def _exr_attr(name: bytes, typ: bytes, data: bytes) -> bytes:
+    return name + b"\0" + typ + b"\0" + struct.pack("<i", len(data)) + data
+
+
+def write_exr(path: str, img: np.ndarray):
+    """Minimal OpenEXR 2.0 writer: float32 scanline, NO_COMPRESSION.
+    Accepts (H,W), (H,W,1|3|4)."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, nc = img.shape
+    if nc not in _EXR_CH_NAMES:
+        raise ValueError(f"{path}: an EXR takes 1, 3 or 4 channels, got {nc}")
+    names = _EXR_CH_NAMES[nc]
+    # channel list sorted alphabetically, as the format requires
+    order = sorted(range(nc), key=lambda i: names[i])
+    chlist = b""
+    for i in order:
+        # pixelType FLOAT=2, pLinear=0 + 3 reserved, x/ySampling=1
+        chlist += names[i].encode() + b"\0" + struct.pack("<iBBBBii", 2, 0, 0, 0, 0, 1, 1)
+    chlist += b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = (
+        struct.pack("<ii", _EXR_MAGIC, 2)
+        + _exr_attr(b"channels", b"chlist", chlist)
+        + _exr_attr(b"compression", b"compression", b"\0")
+        + _exr_attr(b"dataWindow", b"box2i", box)
+        + _exr_attr(b"displayWindow", b"box2i", box)
+        + _exr_attr(b"lineOrder", b"lineOrder", b"\0")
+        + _exr_attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+        + _exr_attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0.0, 0.0))
+        + _exr_attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+        + b"\0"
+    )
+    line_bytes = 8 + nc * w * 4  # y + size prefix + channel-planar pixels
+    data_start = len(header) + 8 * h
+    offsets = struct.pack("<%dQ" % h, *[data_start + y * line_bytes for y in range(h)])
+    planar = np.ascontiguousarray(img[:, :, order].transpose(0, 2, 1))  # (H, C, W)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(offsets)
+        for y in range(h):
+            f.write(struct.pack("<ii", y, nc * w * 4))
+            f.write(planar[y].astype("<f4").tobytes())
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read an EXR written by :func:`write_exr` (float32, uncompressed
+    scanline).  Returns (H, W, C) with channels in R,G,B[,A] / Y order."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    magic, _version = struct.unpack_from("<ii", buf, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError(f"{path}: not an EXR file")
+    pos = 8
+    attrs = {}
+    while buf[pos] != 0:
+        e = buf.index(b"\0", pos)
+        name = buf[pos:e].decode()
+        pos = e + 1
+        e = buf.index(b"\0", pos)
+        typ = buf[pos:e].decode()
+        pos = e + 1
+        (size,) = struct.unpack_from("<i", buf, pos)
+        pos += 4
+        attrs[name] = (typ, buf[pos:pos + size])
+        pos += size
+    pos += 1  # header terminator
+    if attrs["compression"][1][0] != 0:
+        raise ValueError(f"{path}: only NO_COMPRESSION EXRs are read")
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+    h, w = y1 - y0 + 1, x1 - x0 + 1
+    chdata = attrs["channels"][1]
+    cpos, chans = 0, []
+    while chdata[cpos] != 0:
+        e = chdata.index(b"\0", cpos)
+        cname = chdata[cpos:e].decode()
+        cpos = e + 1
+        (ptype,) = struct.unpack_from("<i", chdata, cpos)
+        cpos += 16
+        if ptype != 2:
+            raise ValueError(f"{path}: only FLOAT channels are read (channel {cname} has type {ptype})")
+        chans.append(cname)
+    pos += 8 * h  # skip the offset table (blocks follow in order)
+    nc = len(chans)
+    out = np.empty((h, nc, w), np.float32)
+    for _ in range(h):
+        y, size = struct.unpack_from("<ii", buf, pos)
+        pos += 8
+        out[y - y0] = np.frombuffer(buf, "<f4", nc * w, pos).reshape(nc, w)
+        pos += size
+    want = _EXR_CH_NAMES.get(nc)
+    if want and set(want) == set(chans):
+        out = out[:, [chans.index(n) for n in want], :]
+    return np.ascontiguousarray(out.transpose(0, 2, 1))
 
 
 def dump_metadata(config, opt_config, extra=None, fn="metadata.json"):

@@ -72,6 +72,13 @@ def test_configs_equal_jax():
         assert dataclasses.asdict(ct) == dataclasses.asdict(cj) and rest_t == rest_j == ["--spp=8"]
         assert [ct.sensor_indices(i) for i in range(5)] == [cj.sensor_indices(i) for i in range(5)]
         assert [ct.res_at(i) for i in (0, 100, 200)] == [cj.res_at(i) for i in (0, 100, 200)]
+        vt, vj = ct.variables(), cj.variables()
+        assert [type(v).__name__ for v in vt] == [type(v).__name__ for v in vj]
+        assert [dataclasses.asdict(v) for v in vt] == [dataclasses.asdict(v) for v in vj]
+    assert topt_configs.OPT_CONFIG_NAMES == jopt_configs.OPT_CONFIG_NAMES and len(topt_configs.OPT_CONFIG_NAMES) == 71
+    principled_12, _ = topt_configs.get_opt_config("principled-12")
+    assert [(v.key, v.resolution, v.initial_resolution) for v in principled_12.variables()] == [
+        ("sdf", 64, 16), ("albedo", 64, 2), ("roughness", 16, 4)]
     no_tex_12, _ = topt_configs.get_opt_config("no-tex-12")
     assert (no_tex_12.n_sensors, no_tex_12.batch_size, no_tex_12.resx, no_tex_12.sdf_res) == (12, 6, 128, 64)
     m = tconfigs.get_config("warp")
@@ -81,14 +88,14 @@ def test_configs_equal_jax():
 def test_unported_options_raise():
     method = tconfigs.get_config("warp")
     cfg = topt_configs.SdfConfig(upsample_iter=(), **TINY)
-    with pytest.raises(NotImplementedError):  # .vol scene assets
-        optimize_shape(SCENE, cfg, method, scene_dir="scenes", device="cpu")
+    with pytest.raises(NotImplementedError):  # a named config whose rig has a mesh: resolves, raises at the rig
+        optimize_shape(SCENE, topt_configs.get_opt_config("torus-shadow-1")[0], method, device="cpu")
     with pytest.raises(NotImplementedError):
         optimize_shape(SCENE, cfg, tconfigs.get_config("fd"), device="cpu")
     with pytest.raises(NotImplementedError):
         optimize_shape("mirror-opt", topt_configs.SdfConfig(**{**TINY, "scene_name": None}), method, device="cpu")
-    with pytest.raises(NotImplementedError):
-        topt_configs.SdfConfig(param_keys=("sdf", "albedo")).variables()
+    with pytest.raises(NotImplementedError):  # the area-light rig
+        optimize_shape("plane_area", topt_configs.SdfConfig(**{**TINY, "scene_name": None}), method, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no card and no device="cpu": raises, no fallback
             optimize_shape(SCENE, cfg, method, n_iter=1)

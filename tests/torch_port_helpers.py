@@ -20,9 +20,24 @@ def t(a, dtype=torch.float32):
     return torch.tensor(np.array(a), dtype=dtype)
 
 
+def jax_bsdf_to_numpy(bsdf):
+    """The BSDF entries of the ``utils/convert.py`` scene dict from a JAX
+    ``DiffuseBSDF`` or ``PrincipledBSDF``."""
+    if hasattr(bsdf, "base_color"):
+        d = {"bsdf": "principled", "base_color": np.array(bsdf.base_color), "roughness": np.array(bsdf.roughness),
+             "specular": bsdf.specular}
+        texs = {"base_color_tex": bsdf.base_color_tex, "roughness_tex": bsdf.roughness_tex}
+    else:
+        d = {"bsdf": "diffuse", "albedo": np.array(bsdf.albedo)}
+        texs = {"albedo_tex": bsdf.albedo_tex}
+    d.update({k: np.array(v) for k, v in texs.items() if v is not None})
+    return d
+
+
 def jax_scene_to_numpy(scene):
     """The scene dict of ``utils/convert.py`` from a JAX ``Scene`` (grid
-    envmap or constant emitter, diffuse BSDF, perspective rig)."""
+    envmap or constant emitter, diffuse or principled BSDF, perspective
+    rig)."""
     c = scene.cameras
     d = {
         "sdf": np.array(scene.sdf.data),
@@ -32,7 +47,7 @@ def jax_scene_to_numpy(scene):
         "cam_tan_half_fov": np.array(c.tan_half_fov),
         "cam_resx": c.resx,
         "cam_resy": c.resy,
-        "albedo": np.array(scene.bsdf.albedo),
+        **jax_bsdf_to_numpy(scene.bsdf),
     }
     e = scene.emitter
     if hasattr(e, "alias_idx"):
