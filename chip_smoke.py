@@ -28,9 +28,16 @@ line; any failure raises and the script exits non-zero:
    point sets (the path's own points in lane order, 2²¹ points near the
    surface in random order, the same in Morton order); after these, K1 on
    the analytic sphere of the Pallas probe
-   ``scripts/trace_probe_r3.py::probe_pallas`` (262,144 rays).
-   ``--kernels-only`` stops after the grid cases (no sphere case, no later
-   phase but the launch count of redistancing).
+   ``scripts/trace_probe_r3.py::probe_pallas`` (262,144 rays); then K1 on
+   the hybrid scenes' ray sets at their 128³ targets: the shadow rays
+   toward the vMF sun from the ``torus-shadow`` floor (256² film), the rays
+   reflected off the ``mirror-opt`` mirror, and the ``plane_area`` shadow
+   rays toward the area light with their finite ``maxt`` (hit bits over
+   the active lanes); and K2 on the 128³ ``torus-shadow`` grid: the floor
+   and torus hits of the 256² camera chunk in lane order, and resampled in
+   random and in Morton order.
+   ``--kernels-only`` stops after the grid cases (no sphere or hybrid case,
+   no later phase but the launch count of redistancing).
 4. ``reference`` — a small primal render on the card against the same
    package's plain path on the host.
 5. ``train``   — ``optimize_shape("bunny", no-tex-12, warp)`` at the
@@ -57,11 +64,24 @@ line; any failure raises and the script exits non-zero:
 8. ``golden`` — the port's renders of the ``trefoil``, ``blob`` and
    ``cinquefoil`` assets (64³, 64², 16 spp, view 0, seed 0) against the JAX
    package's golden EXRs at its own bound (atol 5e-4, rtol 1e-3).
-9. ``launch_count`` — the CUDA launches of one redistancing call at every
+9. ``shadow`` — ``optimize_shape("torus-shadow", torus-shadow-1, warp)`` at
+   the published widths (1 view, 64 + 256 spp, the diffuse floor under the
+   vMF sun, grid 8³ → 128³, film 128² then 256²), depth cut to 6 iterations
+   with the grid doubling after 1, 2, 3 and 4 and the film after 4,
+   reference spp 64, checkpoints read back; seconds per iteration by (grid,
+   film), peak memory and the launches of each kernel; then
+   ``render_turntable_torch.main`` on its output (1 frame at 512², 256 spp)
+   and ``optimize_torch.main`` for 1 iteration.
+10. ``mirror`` — ``optimize_shape("mirror-opt", mirror-opt-1, warp)``: 3
+   iterations at its published widths, the grid 16³ → 64³.
+11. ``plane_area`` — NEE-only and MIS primal renders (128², 256 spp) and a
+   MIS grad-mode render with its backward pass on the 128³ target, then 2
+   iterations of ``optimize_shape("plane_area", no-tex-1, warp)``.
+12. ``launch_count`` — the CUDA launches of one redistancing call at every
    size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
    after the timed phases; and the launches and device time of one view of
    the textured step with and without its texture volumes bound.
-10. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+13. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -433,27 +453,35 @@ def phase_kernels(device):
     return max_err, by_res
 
 
-def primal_chunk_rays(device):
-    """Camera rays of the first lane chunk of a primal render of view 0 of
-    the ``no-tex-12`` rig (128² film, 256 spp), as ``render_lane_block``
-    makes them, and the uniforms of those lanes."""
+def camera_chunk_rays(cam, spp, device):
+    """Camera rays of the first lane chunk of a primal render of ``cam`` at
+    ``spp`` samples a pixel, as ``render_lane_block`` makes them, and the
+    uniforms of those lanes."""
     import torch
 
-    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
     from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, lane_chunks
     from differentiable_sdf_rendering_tpu_torch.ops.film import BORDER
     from differentiable_sdf_rendering_tpu_torch.ops.sampling import lane_uniforms
 
-    cfg = RenderConfig(spp=256)
-    cam = regular_cameras(12, resx=128, resy=128, device=device).view(0)
-    lane = lane_chunks(cam, cfg, device)[0]
+    lane = lane_chunks(cam, RenderConfig(spp=spp), device)[0]
     pw = cam.resx + 2 * BORDER
-    pix = torch.div(lane, cfg.spp, rounding_mode="floor")
+    pix = torch.div(lane, spp, rounding_mode="floor")
     py = torch.div(pix, pw, rounding_mode="floor").to(torch.float32) - BORDER
     px = (pix % pw).to(torch.float32) - BORDER
     uni = lane_uniforms(0, lane, 6)
     o, d = cam.sample_ray(torch.stack([px + uni[:, 0], py + uni[:, 1]], dim=-1))
-    return o, d, uni, cfg.trace
+    return o, d, uni
+
+
+def primal_chunk_rays(device):
+    """Camera rays of the first lane chunk of a primal render of view 0 of
+    the ``no-tex-12`` rig (128² film, 256 spp), the uniforms of those lanes
+    and the trace parameters."""
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
+
+    cam = regular_cameras(12, resx=128, resy=128, device=device).view(0)
+    return (*camera_chunk_rays(cam, 256, device), RenderConfig().trace)
 
 
 def step_statistics(steps):
@@ -547,18 +575,25 @@ def trace_case(sdf, o, d, params, lanes_kw):
         raise AssertionError("two launches of the sphere-trace kernel on the same rays differ")
     hit_k, hit_p = torch.isfinite(its_k), torch.isfinite(its_p)
     both = hit_k & hit_p
-    hit_diff = float((hit_k != hit_p).float().mean())
+    differ = hit_k != hit_p
     max_dt = float((its_k[both] - its_p[both]).abs().max()) if bool(both.any()) else 0.0
     n = o.shape[0]
     evals = int(evals_per_ray.sum())
     t_ops = evals * TRACE_OPS_PER_EVAL / PEAK_FP32_FLOPS * 1e3
     t_bytes = trace_bytes(sdf, o, d, lanes_kw) / PEAK_BYTES_PER_S * 1e3
     short = evals_per_ray < 128
-    if "active" in lanes_kw:
-        short = short & lanes_kw["active"]
+    # the lanes the path traces: with an ``active`` mask, the others are
+    # misses by construction in both versions, so shares are of the active
+    # lanes (a differing inactive lane still counts against them)
+    active = lanes_kw.get("active", torch.ones_like(hit_k))
+    n_active = int(active.sum())
+    short = short & active
     return {
         "rays": n, "grid_res": sdf.data.shape[0], "hit_share": float(hit_k.float().mean()),
-        "hit_bits_differ_share": hit_diff, "max_abs_dits_t_both_hit": max_dt,
+        "hit_bits_differ_share": float(differ.float().mean()), "max_abs_dits_t_both_hit": max_dt,
+        "active_rays": n_active, "hit_bits_differ_rays": int(differ.sum()),
+        "hit_bits_differ_share_active": int(differ.sum()) / max(n_active, 1),
+        "plain_hit_share_active": int((hit_p & active).sum()) / max(n_active, 1),
         "mean_num_steps": float(evals_per_ray.float().mean()), "max_num_steps": int(evals_per_ray.max()),
         "ms": cuda_ms(k1_bare(sdf, o, d, params, lanes_kw)),
         "wrapper_ms": cuda_ms(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw)),
@@ -644,11 +679,19 @@ def morton_order(pts, origin, res):
     return torch.argsort(code)
 
 
-def grid_eval_case(data, origin, pts):
+def grid_eval_case(data, origin, pts, float64_witness=False):
     """K2 against its plain version on one point set: agreement (relative to
     the output's scale) of both row-load paths, CUDA-event times and the
     bound.  The scalar-row path is reached through a copy of the grid 4
-    bytes off 16-byte alignment."""
+    bytes off 16-byte alignment.
+
+    With ``float64_witness``, both versions are also held against the plain
+    version in float64, and the kernel may differ from it by twice the plain
+    float32 version's own error where that exceeds 1e-5 of the scale: on the
+    128³ ``torus-shadow`` floor points the taps are ≈ 0.5 and the gradient
+    (≈ 0.57 across the floor) is their difference times 128, so float32
+    rounding alone puts the plain version 1.1-1.3e-5 off float64 there (an
+    H100, 700 W), and two float32 orders of summation 1.5-1.8e-5 apart."""
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.ops import grid as gridops
@@ -664,14 +707,27 @@ def grid_eval_case(data, origin, pts):
     n = pts.shape[0]
     t_ops = n * GRID_EVAL_OPS_PER_POINT / PEAK_FP32_FLOPS * 1e3
     t_bytes = (n * GRID_EVAL_BYTES_PER_POINT + data.numel() * 4 + 12) / PEAK_BYTES_PER_S * 1e3
-    # tolerance: the kernel and torch.sum add the 64 weighted taps in
-    # different orders; the difference is rounding (relative to the output's
-    # scale)
-    if not (rel_v <= 1e-5 and rel_g <= 1e-5):
+    witness = {}
+    if float64_witness:
+        v64, g64 = gridops.grid_eval_grad(data.double(), pts.double() - origin.double())
+        scale_v, scale_g = float(v64.abs().max()), float(g64.abs().max())
+        witness = {
+            "value_rel_err_vs_float64": {"kernel": max(float((v.double() - v64).abs().max()) for v in (vk, vs)) / scale_v,
+                                         "plain": float((vp.double() - v64).abs().max()) / scale_v},
+            "grad_rel_err_vs_float64": {"kernel": max(float((g.double() - g64).abs().max()) for g in (gk, gs)) / scale_g,
+                                        "plain": float((gp.double() - g64).abs().max()) / scale_g},
+        }
+        agree = all(e["kernel"] <= max(1e-5, 2.0 * e["plain"]) for e in witness.values())
+    else:
+        # tolerance: the kernel and torch.sum add the 64 weighted taps in
+        # different orders; the difference is rounding (relative to the
+        # output's scale)
+        agree = rel_v <= 1e-5 and rel_g <= 1e-5
+    if not agree:
         raise AssertionError(f"grid-evaluation kernel disagrees with its plain version: "
-                             f"relative {rel_v} (value), {rel_g} (gradient)")
+                             f"relative {rel_v} (value), {rel_g} (gradient); {witness}")
     return {
-        "points": n, "grid_res": data.shape[0], "max_rel_diff_value": rel_v, "max_rel_diff_grad": rel_g,
+        "points": n, "grid_res": data.shape[0], "max_rel_diff_value": rel_v, "max_rel_diff_grad": rel_g, **witness,
         "max_abs_diff": max(float((a - b).abs().max()) for a, b in ((vk, vp), (vs, vp), (gk, gp), (gs, gp))),
         "ms": cuda_ms(lambda: gridops._grid_eval_grad_kernel(data, pts, origin)),
         # the same kernel on a copy of the grid 4 bytes off 16-byte alignment,
@@ -707,6 +763,104 @@ def path_ray_sets(device):
         yield f"shadow_{res}", sdf, si.p + ds_d * 1e-3, ds_d, occlusion, {"active": si.valid}, si
 
 
+def hybrid_ray_sets(device):
+    """K1's ray sets of the hybrid scenes, as ``(name, sdf, o, d, params,
+    lanes_kw, si)``, each on the 128³ target of its rig and the first lane
+    chunk of a primal render at 256 spp (the training path's primal spp):
+
+    - ``floor_shadow_128``: ``torus-shadow`` at its 256² film; the shadow
+      rays toward the vMF sun from the camera lanes whose nearest hit is the
+      floor (y = 0.22, below the SDF's bbox), occlusion query;
+    - ``mirror_reflected_128``: ``mirror-opt`` at 128²; the reflected rays
+      of the camera lanes that hit the mirror, with refinement;
+    - ``area_shadow_128``: ``plane_area`` at 128²; the NEE shadow rays from
+      the SDF hits toward the area light or the ambient, each with its
+      finite (or infinite) ``maxt``, occlusion query.
+
+    The hits, reflections and samples come from the port's own hybrid
+    intersection, mirror bounce and NEE sampler (``models/integrator.py``).
+    ``si`` is the camera lanes' surface interaction, whose points ``si.p``
+    (the camera where a lane missed) are those the primal path hands K2."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models import integrator as integ
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
+
+    cfg = integ.RenderConfig()
+    occlusion = dataclasses.replace(cfg.trace, refine_intersection=False)
+    for name, film in (("torus-shadow", 256), ("mirror-opt", 128), ("plane_area", 128)):
+        rig = scene_rig_full(name, device=device)
+        scene = Scene(sdf=GridSDF.create(target_sdf(name, 128, device=device)), bsdf=rig["bsdf"],
+                      emitter=rig["emitter"], cameras=regular_cameras(1, resx=film, resy=film, device=device),
+                      mesh=rig["mesh"], area_emitter=rig["area_emitter"])
+        o, d, uni = camera_chunk_rays(scene.cameras.view(0), 256, device)
+        its_t, d1, _, maux = integ._ray_intersect(scene, o, d, 0, cfg, "primal")
+        si, is_mesh = integ._compute_si(scene, o, d1, its_t, maux, differentiable=False)
+        if name == "mirror-opt":
+            is_mirror = is_mesh & maux[3]
+            o_r, d_r = integ._mirror_rays(si, o, d1, is_mirror, cfg)
+            yield "mirror_reflected_128", scene.sdf, o_r, d_r, cfg.trace, {"active": is_mirror}, si
+            continue
+        ds_d, ds_pdf, _, ds_dist = integ._nee_sample(scene, si.p, uni[:, 2:4])
+        shade = (is_mesh if name == "torus-shadow" else si.valid) & (ds_pdf > 0)
+        lanes_kw = {"active": shade}
+        if name == "plane_area":
+            lanes_kw["maxt"] = torch.where(torch.isfinite(ds_dist), ds_dist * (1.0 - 1e-3) - cfg.shadow_eps,
+                                           torch.full_like(ds_dist, math.inf))
+        label = "floor_shadow_128" if name == "torus-shadow" else "area_shadow_128"
+        yield label, scene.sdf, si.p + ds_d * cfg.shadow_eps, ds_d, occlusion, lanes_kw, si
+
+
+# K1 on the hybrid ray sets: the share of the active lanes whose hit bit may
+# differ from the plain version's.  K1 and its plain version round the
+# tricubic sums differently, so a ray that grazes the surface within a
+# rounding of the hit threshold can flip; on an H100 that was 1 floor shadow
+# ray of 571,859 active and none on the other two sets.  Each set's plain hit
+# share must be far above the limit, so that a kernel that misses every ray
+# cannot pass.
+HYBRID_HIT_BITS_LIMIT = 1e-5
+HYBRID_MIN_HIT_SHARE = 100 * HYBRID_HIT_BITS_LIMIT
+
+
+def phase_hybrid_trace_kernels(device):
+    """K1 against its plain version on the hybrid scenes' ray sets
+    (:func:`hybrid_ray_sets`): hit bits over the active lanes at
+    ``HYBRID_HIT_BITS_LIMIT``, ``its_t`` within 1e-5 where both hit.  K2
+    against its plain version on the 128³ ``torus-shadow`` grid, on the
+    points the primal path hands it on the 256² camera chunk (floor and
+    torus hits, lane order) and on the 2²¹ resampled points of
+    :func:`grid_eval_point_sets`, with the float64 witness of
+    :func:`grid_eval_case`."""
+    import torch
+
+    trace, grid_eval = {}, {}
+    with torch.no_grad():
+        for name, sdf, o, d, params, lanes_kw, si in hybrid_ray_sets(device):
+            case = trace_case(sdf, o, d, params, lanes_kw)
+            if "maxt" in lanes_kw:
+                case["finite_maxt_rays"] = int((torch.isfinite(lanes_kw["maxt"]) & lanes_kw["active"]).sum())
+            trace[name] = case
+            if name == "floor_shadow_128":
+                grid_eval = {f"torus_shadow_128_{key}": grid_eval_case(sdf.data, sdf.p, pts, float64_witness=True)
+                             for key, pts in grid_eval_point_sets(sdf, si.p, si.p[si.valid]).items()}
+    emit({"phase": "kernels", "sphere_trace_hybrid": trace, "grid_eval_grad_hybrid": grid_eval})
+    for name, case in trace.items():
+        if not (case["hit_bits_differ_share_active"] <= HYBRID_HIT_BITS_LIMIT
+                and case["max_abs_dits_t_both_hit"] <= 1e-5):
+            raise AssertionError(f"sphere-trace kernel disagrees with its plain version ({name}): {case}")
+        if case["active_rays"] < 10_000 or not case["plain_hit_share_active"] >= HYBRID_MIN_HIT_SHARE:
+            raise AssertionError(f"the {name} ray set is degenerate: {case}")
+    if not trace["area_shadow_128"]["finite_maxt_rays"] > 10_000:
+        raise AssertionError(f"too few area-light shadow rays with a finite maxt: {trace['area_shadow_128']}")
+    return trace, grid_eval
+
+
 def grid_eval_point_sets(sdf, path_pts, hits):
     """K2's three point sets on the grid of ``sdf``: (a) ``path_order``, the
     points that compute_surface_interaction hands it on the camera chunk, in
@@ -720,7 +874,7 @@ def grid_eval_point_sets(sdf, path_pts, hits):
     gen = torch.Generator(device=device).manual_seed(0)
     n = 1 << 21
     idx = torch.randint(0, hits.shape[0], (n,), device=device, generator=gen)
-    pts = hits[idx] + (torch.rand(n, 3, device=device, generator=gen) - 0.5) / 64
+    pts = hits[idx] + (torch.rand(n, 3, device=device, generator=gen) - 0.5) / sdf.data.shape[0]
     return {
         "path_order": path_pts.contiguous(),
         "random": pts,
@@ -823,15 +977,75 @@ def read_counts():
     }
 
 
-def phase_train(device):
+def counted(fn):
+    """``fn()`` with every kernel count zeroed just before it and the peak
+    memory statistic reset: ``(its result, the counts read just after, wall
+    seconds, peak bytes allocated)``."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def require_launched(where, *counts):
+    """Fail unless K1 and K2 were launched in each of ``counts``."""
+    for c in counts:
+        if c["sphere_trace"] == 0 or c["grid_eval_grad"] == 0:
+            raise AssertionError(f"a kernel of the {where} path was not launched: {c}")
+
+
+def run_optimize(scene_name, opt_cfg, method, n_iter, **kw):
+    """``optimize_shape`` through :func:`counted`, recording the parameters'
+    shapes after each iteration (the shapes they had during it): ``(result,
+    counts, seconds, peak, shapes)``, ``shapes`` a list of ``{key: shape}``.
+    Fails unless it took ``n_iter`` finite losses."""
     import math
 
+    from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
+
+    shapes = []
+
+    def record(i, params, losses):
+        shapes.append({k: tuple(v.shape) for k, v in params.items()})
+
+    result, counts, seconds, peak = counted(lambda: shape_opt.optimize_shape(
+        scene_name, opt_cfg, method, n_iter=n_iter, verbose=False, checkpoint_cb=record, **kw))
+    if len(result.loss_values) != n_iter or not all(math.isfinite(v) for v in result.loss_values):
+        raise AssertionError(f"{scene_name}: losses {result.loss_values} in {n_iter} iterations")
+    return result, counts, seconds, peak, shapes
+
+
+def check_checkpoints(out_dir, specs, result, n_iter, device):
+    """The run's checkpoint files: each variable's first, last and EMA
+    volumes, the last and the EMA read back equal to the run's tensors.
+    Returns the file names."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.opt.shape_opt import load_checkpoint
+
+    specs = list(specs)
+    files = sorted(os.listdir(os.path.join(out_dir, "params")))
+    want = sorted(f"{s.key}-{tag}.vol" for s in specs for tag in ("data-0000", f"data-{n_iter - 1:04d}", "final"))
+    if files != want:
+        raise AssertionError(f"checkpoints written: {files}, expected {want}")
+    ema_back = load_checkpoint(out_dir, "final", specs, device=device)
+    last_back = load_checkpoint(out_dir, n_iter - 1, specs, device=device)
+    for s in specs:
+        if not (torch.equal(ema_back[s.key], result.ema[s.key]) and torch.equal(last_back[s.key], result.params[s.key])):
+            raise AssertionError(f"the '{s.key}' checkpoints do not read back as the run's tensors and EMA")
+    return files
+
+
+def phase_train(device):
     import numpy as np
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
     from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
-    from differentiable_sdf_rendering_tpu_torch.opt.shape_opt import load_checkpoint, optimize_shape
 
     opt_cfg, _ = get_opt_config("no-tex-12")
     method = get_config("warp")
@@ -841,35 +1055,16 @@ def phase_train(device):
     assert (opt_cfg.n_sensors, opt_cfg.batch_size, opt_cfg.resx, opt_cfg.resy, opt_cfg.sdf_res) == (12, 6, 128, 128, 64)
     assert (method.spp, method.primal_spp_mult) == (64, 4)
 
-    seen = []
-    out_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    result = optimize_shape(
-        "bunny", opt_cfg, method, output_dir=out_dir.name, n_iter=ITERS, ref_spp=REF_SPP, target_res=128,
-        verbose=False, checkpoint_cb=lambda i, params, losses: seen.append(tuple(params["sdf"].shape)),
-    )
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = read_counts()
-    launches, cuda_launches = counts["redistance"], counts["redistance_cuda_launches"]
-    with out_dir:
-        files = sorted(os.listdir(os.path.join(out_dir.name, "params")))
-        want = ["sdf-data-0000.vol", f"sdf-data-{ITERS - 1:04d}.vol", "sdf-final.vol"]
-        if files != want or not os.path.exists(os.path.join(out_dir.name, "metadata.json")):
-            raise AssertionError(f"checkpoints written: {files}, expected {want} and metadata.json")
-        ema_back = load_checkpoint(out_dir.name, "final", opt_cfg.variables(), device=device)["sdf"]
-        last_back = load_checkpoint(out_dir.name, ITERS - 1, opt_cfg.variables(), device=device)["sdf"]
-        if not (torch.equal(ema_back, result.ema["sdf"]) and torch.equal(last_back, result.params["sdf"])):
-            raise AssertionError("the checkpoints do not read back as the run's final grid and EMA")
-        with open(os.path.join(out_dir.name, "metadata.json")) as f:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
+        result, counts, seconds, peak, shapes = run_optimize(
+            "bunny", opt_cfg, method, ITERS, output_dir=out_dir, ref_spp=REF_SPP, target_res=128)
+        files = check_checkpoints(out_dir, opt_cfg.variables(), result, ITERS, device)
+        with open(os.path.join(out_dir, "metadata.json")) as f:
             if not np.allclose(json.load(f)["loss_values"], result.loss_values):
                 raise AssertionError("metadata.json does not hold the run's losses")
-
+    launches, cuda_launches = counts["redistance"], counts["redistance_cuda_launches"]
+    seen = [s["sdf"] for s in shapes]
     final = result.params["sdf"]
-    if not all(math.isfinite(v) for v in result.loss_values) or len(result.loss_values) != ITERS:
-        raise AssertionError(f"losses not finite: {result.loss_values}")
     if tuple(final.shape) != (64, 64, 64) or not {(16,) * 3, (32,) * 3, (64,) * 3} <= set(seen):
         raise AssertionError(f"grid went through {seen}, expected 16^3, 32^3 and 64^3")
     if not torch.isfinite(final).all() or not torch.isfinite(result.ema["sdf"]).all():
@@ -879,8 +1074,7 @@ def phase_train(device):
     if launches < ITERS or not 0 < cuda_launches <= 2 * launches:
         raise AssertionError(f"redistance kernel: {launches} calls, {cuda_launches} CUDA launches "
                              f"in {ITERS} iterations")
-    if counts["sphere_trace"] == 0 or counts["grid_eval_grad"] == 0:
-        raise AssertionError(f"a kernel of the training path was not launched: {counts}")
+    require_launched("training", counts)
     eik = eikonal_median(final)
     if not 0.7 < eik < 1.3:
         raise AssertionError(f"final grid is not a distance field near its surface: median |grad f| = {eik}")
@@ -890,7 +1084,7 @@ def phase_train(device):
         "loss": result.loss_values, "iter_seconds": result.iter_seconds,
         "grid_res": [s[0] for s in seen], "seconds_total": seconds,
         "kernel_launches": counts, "eikonal_median": eik,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_memory_bytes": peak,
         "checkpoints": files,
     })
     return counts
@@ -927,58 +1121,58 @@ def frame_recorder(render_chunked, frames, device):
     return recording_render
 
 
-def phase_cli(device):
-    """``optimize_torch.main`` then ``render_turntable_torch.main`` in-process,
-    at the published widths: ``bunny`` / ``no-tex-12`` / ``warp`` for one
-    iteration (reference spp cut to 64 as in the train phase), then the
-    turntable at 512², 256 spp for 4 of its 64 frames."""
-    import torch
-
-    import optimize_torch
+def run_turntable(args, frame_dir, n_frames, device):
+    """``render_turntable_torch.main(args)`` for ``n_frames`` frames through
+    :func:`counted`, each frame recorded by :func:`frame_recorder`, and the
+    PNGs it wrote in ``frame_dir`` read back.  Fails unless every frame is
+    finite, 512², covers 1-99 % of the image and launched K1 and K2.
+    Returns ``(seconds, counts, frames)``."""
     import render_turntable_torch
     from differentiable_sdf_rendering_tpu_torch.utils import io, video
 
     frames = []
     render_chunked = video.render_chunked
-    recording_render = frame_recorder(render_chunked, frames, device)
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out_dir:
-        reset_counts()
-        t0 = time.perf_counter()
-        optimize_torch.main(["bunny", "--optconfig", "no-tex-12", "--configs", "warp", "--n_iter", "1",
-                             "--refspp", str(REF_SPP), "--outputdir", out_dir])
-        torch.cuda.synchronize()
-        optimize_seconds = time.perf_counter() - t0
-        optimize_counts = read_counts()
-
-        reset_counts()
-        video.render_chunked = recording_render
-        t0 = time.perf_counter()
-        try:
-            render_turntable_torch.main(["bunny", "--optconfig", "no-tex-12", "--config", "warp",
-                                         "--outputdir", out_dir, "--n_frames", str(TURNTABLE_FRAMES)])
-        finally:
-            video.render_chunked = render_chunked
-        turntable_seconds = time.perf_counter() - t0
-        turntable_counts = read_counts()
-
-        frame_dir = os.path.join(out_dir, "bunny", "no-tex-12", "warp", "turntable")
-        pngs = sorted(os.listdir(frame_dir))
-        shapes = [io.read_png(os.path.join(frame_dir, f)).shape for f in pngs]
-    if len(pngs) != TURNTABLE_FRAMES or any(sh != (512, 512, 3) for sh in shapes):
+    video.render_chunked = frame_recorder(render_chunked, frames, device)
+    try:
+        _, counts, seconds, _ = counted(lambda: render_turntable_torch.main([*args, "--n_frames", str(n_frames)]))
+    finally:
+        video.render_chunked = render_chunked
+    pngs = sorted(os.listdir(frame_dir))
+    shapes = [io.read_png(os.path.join(frame_dir, f)).shape for f in pngs]
+    if len(pngs) != n_frames or any(sh != (512, 512, 3) for sh in shapes) or len(frames) != n_frames:
         raise AssertionError(f"turntable frames written: {pngs} of shapes {shapes}")
     if not all(f["finite"] and 0.01 < f["coverage"] < 0.99 and f["shape"] == [512, 512, 4] for f in frames):
         raise AssertionError(f"turntable frames: {frames}")
-    for counts in (optimize_counts, turntable_counts):
-        if counts["sphere_trace"] == 0 or counts["grid_eval_grad"] == 0:
-            raise AssertionError(f"a kernel of the CLI path was not launched: {counts}")
+    require_launched("turntable", counts)
+    return seconds, counts, frames
+
+
+def frame_fields(seconds, counts, frames):
+    """A turntable run's numbers for a phase line."""
+    return {"turntable_seconds": seconds, "turntable_frame_seconds": [f["seconds"] for f in frames],
+            "turntable_coverage": [f["coverage"] for f in frames], "turntable_kernel_launches": counts}
+
+
+def phase_cli(device):
+    """``optimize_torch.main`` then ``render_turntable_torch.main`` in-process,
+    at the published widths: ``bunny`` / ``no-tex-12`` / ``warp`` for one
+    iteration (reference spp cut to 64 as in the train phase), then the
+    turntable at 512², 256 spp for 4 of its 64 frames."""
+    import optimize_torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out_dir:
+        _, optimize_counts, optimize_seconds, _ = counted(lambda: optimize_torch.main(
+            ["bunny", "--optconfig", "no-tex-12", "--configs", "warp", "--n_iter", "1",
+             "--refspp", str(REF_SPP), "--outputdir", out_dir]))
+        turntable = run_turntable(["bunny", "--optconfig", "no-tex-12", "--config", "warp", "--outputdir", out_dir],
+                                  os.path.join(out_dir, "bunny", "no-tex-12", "warp", "turntable"),
+                                  TURNTABLE_FRAMES, device)
+    require_launched("CLI", optimize_counts)
     emit({
         "phase": "cli", "optimize_seconds": optimize_seconds, "optimize_kernel_launches": optimize_counts,
-        "turntable_seconds": turntable_seconds, "turntable_frames": len(pngs),
-        "turntable_frame_seconds": [f["seconds"] for f in frames], "turntable_kernel_launches": turntable_counts,
-        "coverage": [f["coverage"] for f in frames],
+        "turntable_frames": TURNTABLE_FRAMES, **frame_fields(*turntable),
     })
-    return optimize_counts, turntable_counts
+    return optimize_counts, turntable[1]
 
 
 # depth cuts of the textured phase: iterations (512 in a full run; the
@@ -993,19 +1187,16 @@ def phase_textured(device):
     widths with checkpoints, then ``render_turntable_torch.main`` on its
     output for one 512², 256-spp frame (counts zeroed before each, read
     after).  Returns the run's result and the counts of both."""
-    import math
-
     import numpy as np
     import torch
 
-    import render_turntable_torch
     from differentiable_sdf_rendering_tpu_torch.models.emitter import GridEnvmap
     from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import ASSET_DIR
     from differentiable_sdf_rendering_tpu_torch.ops.redistance import redistance
     from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
     from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
     from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
-    from differentiable_sdf_rendering_tpu_torch.utils import io, video
+    from differentiable_sdf_rendering_tpu_torch.utils import io
 
     opt_cfg, _ = get_opt_config(TEX_CONFIG)
     method = get_config("warp")
@@ -1019,56 +1210,24 @@ def phase_textured(device):
     assert [(k, s.resolution, s.initial_resolution) for k, s in specs.items()] == [
         ("sdf", 64, 16), ("albedo", 64, 8), ("roughness", 16, 4)]
 
-    targets, seen = [], []
+    targets = []
     target_sdf = shape_opt.target_sdf
 
     def recording_target(*a, **kw):
         targets.append(target_sdf(*a, **kw))
         return targets[-1]
 
-    def record(i, params, losses):
-        seen.append({k: tuple(v.shape) for k, v in params.items()})
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_textured_") as root:
         out_dir = os.path.join(root, TEX_SCENE, TEX_CONFIG, method.name)
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
         shape_opt.target_sdf = recording_target
-        t0 = time.perf_counter()
         try:
-            result = shape_opt.optimize_shape(TEX_SCENE, opt_cfg, method, output_dir=out_dir, n_iter=TEX_ITERS,
-                                              ref_spp=REF_SPP, verbose=False, checkpoint_cb=record)
+            result, counts, seconds, peak, seen = run_optimize(TEX_SCENE, opt_cfg, method, TEX_ITERS,
+                                                               output_dir=out_dir, ref_spp=REF_SPP)
         finally:
             shape_opt.target_sdf = target_sdf
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-
-        files = sorted(os.listdir(os.path.join(out_dir, "params")))
-        want = sorted(f"{k}-{tag}.vol" for k in specs for tag in ("data-0000", f"data-{TEX_ITERS - 1:04d}", "final"))
-        if files != want:
-            raise AssertionError(f"checkpoints written: {files}, expected {want}")
-        ema_back = shape_opt.load_checkpoint(out_dir, "final", specs.values(), device=device)
-        last_back = shape_opt.load_checkpoint(out_dir, TEX_ITERS - 1, specs.values(), device=device)
-        for k in specs:
-            if not (torch.equal(ema_back[k], result.ema[k]) and torch.equal(last_back[k], result.params[k])):
-                raise AssertionError(f"the '{k}' checkpoints do not read back as the run's tensors and EMA")
-
-        frames = []
-        render_chunked = video.render_chunked
-        video.render_chunked = frame_recorder(render_chunked, frames, device)
-        reset_counts()
-        t0 = time.perf_counter()
-        try:
-            render_turntable_torch.main([TEX_SCENE, "--optconfig", TEX_CONFIG, "--config", method.name,
-                                         "--outputdir", root, "--n_frames", "1"])
-        finally:
-            video.render_chunked = render_chunked
-        turntable_seconds = time.perf_counter() - t0
-        turntable_counts = read_counts()
-        pngs = sorted(os.listdir(os.path.join(out_dir, "turntable")))
-        png_shapes = [io.read_png(os.path.join(out_dir, "turntable", f)).shape for f in pngs]
+        files = check_checkpoints(out_dir, specs.values(), result, TEX_ITERS, device)
+        turntable = run_turntable([TEX_SCENE, "--optconfig", TEX_CONFIG, "--config", method.name, "--outputdir", root],
+                                  os.path.join(out_dir, "turntable"), 1, device)
 
     # the target the run used is the 128³ asset, redistanced on the card
     vol = io.read_vol(os.path.join(ASSET_DIR, "sdfs", "trefoil_128.vol"))[..., 0]
@@ -1079,8 +1238,6 @@ def phase_textured(device):
     if not (isinstance(emitter, GridEnvmap) and tuple(emitter.image.shape) == (128, 256, 3)
             and np.array_equal(emitter.image.cpu().numpy(), sky)):
         raise AssertionError("the emitter is not the GridEnvmap of envmaps/studio_sky.exr")
-    if not all(math.isfinite(v) for v in result.loss_values) or len(result.loss_values) != TEX_ITERS:
-        raise AssertionError(f"losses not finite: {result.loss_values}")
     shapes = {k: tuple(v.shape) for k, v in result.params.items()}
     if shapes != {"sdf": (64,) * 3, "albedo": (64, 64, 64, 3), "roughness": (4, 4, 4, 1)}:
         raise AssertionError(f"final parameter shapes {shapes}")
@@ -1095,14 +1252,9 @@ def phase_textured(device):
     albedo_moved = float((albedo - 0.5).abs().max())
     if not albedo_moved > 1e-3:
         raise AssertionError(f"the albedo did not move off its start (max |albedo - 0.5| = {albedo_moved})")
-    for c in (counts, turntable_counts):
-        if c["sphere_trace"] == 0 or c["grid_eval_grad"] == 0:
-            raise AssertionError(f"a kernel of the textured path was not launched: {c}")
+    require_launched("textured", counts)
     if counts["redistance"] < TEX_ITERS:
         raise AssertionError(f"redistance kernel: {counts['redistance']} calls in {TEX_ITERS} iterations")
-    if len(pngs) != 1 or png_shapes != [(512, 512, 3)] or not all(
-            f["finite"] and 0.01 < f["coverage"] < 0.99 and f["shape"] == [512, 512, 4] for f in frames):
-        raise AssertionError(f"turntable frame: {pngs} {png_shapes} {frames}")
     emit({
         "phase": "textured", "scene": TEX_SCENE, "opt_config": TEX_CONFIG, "method": method.name,
         "iterations": TEX_ITERS, "ref_spp": REF_SPP, "target_res": 128, "upsample_iter": [1, 2],
@@ -1110,11 +1262,175 @@ def phase_textured(device):
         "shapes_by_iteration": seen, "seconds_total": seconds, "peak_memory_bytes": peak,
         "kernel_launches": counts, "albedo_range": [float(albedo.min()), float(albedo.max())],
         "albedo_max_move": albedo_moved, "roughness_range": [float(rough.min()), float(rough.max())],
-        "checkpoints": files, "turntable_seconds": turntable_seconds,
-        "turntable_frame_seconds": [f["seconds"] for f in frames], "turntable_coverage": [f["coverage"] for f in frames],
-        "turntable_kernel_launches": turntable_counts,
+        "checkpoints": files, **frame_fields(*turntable),
     })
-    return result, counts, turntable_counts
+    return result, counts, turntable[1]
+
+
+# depth cuts of the shadow phase: iterations (512 in a full run) and the
+# schedules, compressed so that every grid size up to 128³ and the 256²
+# film run: the grid doubles after iterations 1, 2, 3 and 4 (128, 140, 180
+# and 220 in a full run), the film after 4 (220)
+SHADOW_ITERS = 6
+SHADOW_SCENE, SHADOW_CONFIG = "torus-shadow", "torus-shadow-1"
+SHADOW_UPSAMPLE, SHADOW_RENDER_UPSAMPLE = (1, 2, 3, 4), (4,)
+
+
+def iteration_table(opt_cfg, seen, seconds):
+    """Seconds of each iteration with its grid and film,
+    ``[{"grid": r, "film": [x, y], "seconds": s}, ...]``; ``seen`` holds the
+    grid's shape after each iteration (the shape it had during it)."""
+    return [{"grid": shape[0], "film": list(opt_cfg.res_at(i)), "seconds": sec}
+            for i, (shape, sec) in enumerate(zip(seen, seconds))]
+
+
+def phase_shadow(device):
+    """``optimize_shape("torus-shadow", torus-shadow-1, warp)`` at the
+    published widths (1 view, 64 + 256 spp, grid 8³ → 128³, film 128² then
+    256², the diffuse floor under the vMF sun) with checkpoints, cut in depth
+    only; then ``render_turntable_torch.main`` on its output for one 512²,
+    256-spp frame, and ``optimize_torch.main`` for one iteration.  Counts
+    zeroed before each and read after."""
+    import torch
+
+    import optimize_torch
+    from differentiable_sdf_rendering_tpu_torch.models.emitter import VMFEmitter
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    opt_cfg, _ = get_opt_config(SHADOW_CONFIG)
+    method = get_config("warp")
+    assert (opt_cfg.n_sensors, opt_cfg.resx, opt_cfg.resy, opt_cfg.sdf_res) == (1, 256, 256, 128)
+    assert (opt_cfg.upsample_iter, opt_cfg.render_upsample_iter) == ((128, 140, 180, 220), (220,))
+    assert (method.spp, method.primal_spp_mult) == (64, 4)
+    opt_cfg.upsample_iter, opt_cfg.render_upsample_iter = SHADOW_UPSAMPLE, SHADOW_RENDER_UPSAMPLE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shadow_") as root:
+        out_dir = os.path.join(root, SHADOW_SCENE, SHADOW_CONFIG, method.name)
+        result, counts, seconds, peak, shapes = run_optimize(SHADOW_SCENE, opt_cfg, method, SHADOW_ITERS,
+                                                             output_dir=out_dir, ref_spp=REF_SPP, device=device)
+        files = check_checkpoints(out_dir, opt_cfg.variables(), result, SHADOW_ITERS, device)
+        turntable = run_turntable([SHADOW_SCENE, "--optconfig", SHADOW_CONFIG, "--config", method.name,
+                                   "--outputdir", root], os.path.join(out_dir, "turntable"), 1, device)
+        cli_root = os.path.join(root, "cli")
+        _, cli_counts, cli_seconds, _ = counted(lambda: optimize_torch.main(
+            [SHADOW_SCENE, "--optconfig", SHADOW_CONFIG, "--configs", method.name, "--n_iter", "1",
+             "--refspp", str(REF_SPP), "--outputdir", cli_root]))
+        if not os.path.exists(os.path.join(cli_root, SHADOW_SCENE, SHADOW_CONFIG, method.name, "metadata.json")):
+            raise AssertionError("optimize_torch.main wrote no metadata.json")
+
+    seen = [s["sdf"] for s in shapes]
+    films = [opt_cfg.res_at(i) for i in range(SHADOW_ITERS)]
+    if [s[0] for s in seen] != [8, 16, 32, 64, 128, 128]:
+        raise AssertionError(f"grid went through {seen}, expected 8³, 16³, 32³, 64³ and 128³")
+    if films != [(128, 128)] * 4 + [(256, 256)] * 2:
+        raise AssertionError(f"films by iteration {films}")
+    scene = result.scene
+    if scene.mesh is None or scene.mesh.material != "diffuse" or not isinstance(scene.emitter, VMFEmitter):
+        raise AssertionError("the final scene lost the floor or the vMF sun")
+    if not torch.isfinite(result.params["sdf"]).all() or not torch.isfinite(result.ema["sdf"]).all():
+        raise AssertionError("final grid has non-finite values")
+    require_launched("shadow", counts, cli_counts)
+    if counts["redistance"] < SHADOW_ITERS or cli_counts["redistance"] < 1:
+        raise AssertionError(f"redistance kernel: {counts['redistance']} calls in {SHADOW_ITERS} iterations")
+    emit({
+        "phase": "shadow", "scene": SHADOW_SCENE, "opt_config": SHADOW_CONFIG, "method": method.name,
+        "iterations": SHADOW_ITERS, "ref_spp": REF_SPP, "target_res": 128,
+        "upsample_iter": list(SHADOW_UPSAMPLE), "render_upsample_iter": list(SHADOW_RENDER_UPSAMPLE),
+        "loss": result.loss_values, "iter_seconds": iteration_table(opt_cfg, seen, result.iter_seconds),
+        "seconds_total": seconds, "peak_memory_bytes": peak, "kernel_launches": counts,
+        "checkpoints": files, **frame_fields(*turntable), "optimize_cli_seconds": cli_seconds,
+        "optimize_cli_kernel_launches": cli_counts,
+    })
+    return counts, turntable[1], cli_counts
+
+
+def phase_mirror(device):
+    """``optimize_shape("mirror-opt", mirror-opt-1, warp)`` at the published
+    widths (1 view, 128² film, 64 + 256 spp, the torus seen directly and in
+    the mirror rect), 3 iterations with the grid doubling after 1 and 2
+    (16³ → 64³; 128 and 220 in a full run)."""
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    opt_cfg, _ = get_opt_config("mirror-opt-1")
+    method = get_config("warp")
+    assert (opt_cfg.n_sensors, opt_cfg.resx, opt_cfg.sdf_res, opt_cfg.upsample_iter) == (1, 128, 64, (128, 220))
+    opt_cfg.upsample_iter = (1, 2)
+    result, counts, seconds, peak, shapes = run_optimize("mirror-opt", opt_cfg, method, 3, ref_spp=REF_SPP,
+                                                         device=device)
+    seen = [s["sdf"] for s in shapes]
+    if [s[0] for s in seen] != [16, 32, 64]:
+        raise AssertionError(f"mirror run: grids {seen}")
+    if result.scene.mesh is None or result.scene.mesh.material != "mirror":
+        raise AssertionError("the final scene lost its mirror")
+    require_launched("mirror", counts)
+    if counts["redistance"] < 3:
+        raise AssertionError(f"redistance kernel: {counts['redistance']} calls in 3 iterations")
+    emit({
+        "phase": "mirror", "scene": "mirror-opt", "opt_config": "mirror-opt-1", "method": method.name,
+        "iterations": 3, "ref_spp": REF_SPP, "upsample_iter": [1, 2], "loss": result.loss_values,
+        "iter_seconds": iteration_table(opt_cfg, seen, result.iter_seconds), "seconds_total": seconds,
+        "peak_memory_bytes": peak, "kernel_launches": counts,
+    })
+    return counts
+
+
+def phase_plane_area(device):
+    """The ``plane_area`` rig (area panel over a dim ambient) on its 128³
+    target at 128², 256 spp: a primal render with NEE only and one with MIS
+    BSDF sampling (the same integral: their means within 8 %, the bound of
+    the JAX package's test), then a 64-spp grad-mode render with MIS whose
+    backward pass reaches the grid; then two iterations of
+    ``optimize_shape("plane_area", no-tex-1, warp)`` at 16³, 128², 64 + 256
+    spp.  Counts zeroed before and read after."""
+    import dataclasses
+
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    rig = scene_rig_full("plane_area", device=device)
+    scene = Scene.create(target_sdf("plane_area", 128, device=device), bsdf=rig["bsdf"], emitter=rig["emitter"],
+                         cameras=regular_cameras(1, resx=128, resy=128, device=device),
+                         area_emitter=rig["area_emitter"], device=device)
+    leaf = scene.sdf.data.clone().requires_grad_(True)
+
+    def renders():
+        nee = render(scene, 0, seed=0, cfg=RenderConfig(spp=256), device=device)
+        mis = render(scene, 0, seed=1, cfg=RenderConfig(spp=256, use_mis=True), device=device)
+        grad_img = render(scene.replace(sdf=scene.sdf.with_data(leaf)), 0, seed=2,
+                          cfg=RenderConfig(spp=64, use_mis=True), mode="grad", device=device)
+        grad_img[..., :3].sum().backward()
+        return nee, mis, grad_img
+
+    (nee, mis, grad_img), render_counts, render_seconds, _ = counted(renders)
+    means = [float(img[..., :3].mean()) for img in (nee, mis, grad_img.detach())]
+    grad_norm = float(leaf.grad.norm())
+    if not all(bool(torch.isfinite(x).all()) for x in (nee, mis, grad_img, leaf.grad)):
+        raise AssertionError("plane_area renders or gradient not finite")
+    if not abs(means[0] - means[1]) / means[0] < 0.08 or not grad_norm > 1e-3:
+        raise AssertionError(f"plane_area: NEE / MIS / grad means {means}, gradient norm {grad_norm}")
+
+    opt_cfg, _ = get_opt_config("no-tex-1")
+    result, counts, optimize_seconds, _, _ = run_optimize(
+        "plane_area", dataclasses.replace(opt_cfg, scene_name=None), get_config("warp"), 2, ref_spp=REF_SPP,
+        device=device)
+    if result.scene.area_emitter is None:
+        raise AssertionError("the final plane_area scene lost its area light")
+    require_launched("plane_area", render_counts, counts)
+    emit({
+        "phase": "plane_area", "render_spp": [256, 256, 64], "means_nee_mis_grad": means,
+        "grid_gradient_norm": grad_norm, "render_seconds": render_seconds, "render_kernel_launches": render_counts,
+        "optimize_opt_config": "no-tex-1", "optimize_loss": result.loss_values,
+        "optimize_iter_seconds": result.iter_seconds, "optimize_seconds": optimize_seconds,
+        "optimize_kernel_launches": counts,
+    })
+    return render_counts, counts
 
 
 GOLDEN_NAMES = ("trefoil", "blob", "cinquefoil")
@@ -1268,19 +1584,34 @@ def main(argv):
     if argv:
         raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
     sphere = sphere_case(device)
+    hybrid, hybrid_grid_eval = phase_hybrid_trace_kernels(device)
     phase_reference(device)
     train_counts = phase_train(device)
     optimize_counts, turntable_counts = phase_cli(device)
     textured, textured_counts, textured_turntable_counts = phase_textured(device)
     phase_golden(device)
+    shadow_counts = phase_shadow(device)
+    mirror_counts = phase_mirror(device)
+    plane_area_counts = phase_plane_area(device)
     k1_launches, redistance_launches = phase_launch_count(device, textured=textured)
+
+    def launches_in(counts, key):
+        return sum(c[key] for c in counts)
+
+    def slice_launches(key):
+        """The launches of the hybrid phases: the shadow run (+ its turntable
+        frame and CLI iteration), the mirror run, the plane_area renders and
+        run."""
+        return {"shadow_launches": launches_in(shadow_counts, key), "mirror_launches": mirror_counts[key],
+                "plane_area_launches": launches_in(plane_area_counts, key)}
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
     # into the kernel during the train phase, ``cli_launches`` during the two
     # CLI runs, ``textured_launches`` during the textured run and its
-    # turntable frame; ``cuda_launches`` the CUDA launches of the redistancing calls
-    # (counted by the kernel's C entry).  No single PyTorch call computes any
+    # turntable frame, ``shadow_launches``, ``mirror_launches`` and
+    # ``plane_area_launches`` during the hybrid phases; ``cuda_launches`` the
+    # CUDA launches of the redistancing calls (counted by the kernel's C entry).  No single PyTorch call computes any
     # of these functions, so ``library_ms`` is null.
     main_res = by_res[64]
     k1 = trace["camera_64"]
@@ -1293,6 +1624,7 @@ def main(argv):
             "launches": train_counts["redistance"], "cuda_launches": train_counts["redistance_cuda_launches"],
             "cli_launches": optimize_counts["redistance"] + turntable_counts["redistance"],
             "textured_launches": textured_counts["redistance"] + textured_turntable_counts["redistance"],
+            **slice_launches("redistance"),
             "max_abs_err": max_err, "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
             "bound_ms": main_res["bound_ms"], "bound_by": main_res["bound_by"], "library_ms": None,
             "wrapper_ms": main_res["wrapper_ms"], "wrapper_cuda_launches": redistance_launches[64],
@@ -1307,14 +1639,17 @@ def main(argv):
             "launches": train_counts["sphere_trace"],
             "cli_launches": optimize_counts["sphere_trace"] + turntable_counts["sphere_trace"],
             "textured_launches": textured_counts["sphere_trace"] + textured_turntable_counts["sphere_trace"],
-            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*trace.values(), sphere]),
-            "hit_bits_differ_share": max(c["hit_bits_differ_share"] for c in [*trace.values(), sphere]),
+            **slice_launches("sphere_trace"),
+            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*trace.values(), *hybrid.values(), sphere]),
+            "hit_bits_differ_share": max(c["hit_bits_differ_share"]
+                                         for c in [*trace.values(), *hybrid.values(), sphere]),
+            "hybrid_hit_bits_differ_share_active": max(c["hit_bits_differ_share_active"] for c in hybrid.values()),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": None, "wrapper_ms": k1["wrapper_ms"],
             "wrapper_cuda_launches": k1_launches,
             "shape": f"{k1['rays']} camera rays of a bunny view (128^2 film, 256 spp), 64^3 fp32 grid",
-            "sets": {name: {key: c[key] for key in ("ms", "wrapper_ms", "bound_ms", "bound_by")}
-                     for name, c in {**trace, "analytic_sphere": sphere}.items()},
+            "sets": {name: {key: c[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+                     for name, c in {**trace, **hybrid, "analytic_sphere": sphere}.items()},
         },
         {
             "name": "grid_eval_grad", "route": "cuda",
@@ -1325,12 +1660,13 @@ def main(argv):
             "launches": train_counts["grid_eval_grad"],
             "cli_launches": optimize_counts["grid_eval_grad"] + turntable_counts["grid_eval_grad"],
             "textured_launches": textured_counts["grid_eval_grad"] + textured_turntable_counts["grid_eval_grad"],
-            "max_abs_err": max(c["max_abs_diff"] for c in grid_eval.values()),
+            **slice_launches("grid_eval_grad"),
+            "max_abs_err": max(c["max_abs_diff"] for c in [*grid_eval.values(), *hybrid_grid_eval.values()]),
             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": None,
             "shape": f"{k2['points']} points near the surface in random order, 64^3 fp32 grid",
-            "sets": {name: {key: c[key] for key in ("points", "ms", "bound_ms", "bound_by")}
-                     for name, c in grid_eval.items()},
+            "sets": {name: {key: c[key] for key in ("points", "grid_res", "ms", "plain_ms", "bound_ms", "bound_by")}
+                     for name, c in {**grid_eval, **hybrid_grid_eval}.items()},
         },
     ]})
     print(smi, flush=True)

@@ -1,8 +1,8 @@
-"""BSDF models: Lambertian diffuse and a principled-lite (diffuse + GGX).
+"""BSDF models: Lambertian diffuse, a principled-lite (diffuse + GGX) and a
+smooth (delta) conductor.
 
-Counterpart of the JAX package's ``models/bsdf.py`` (``DiffuseBSDF`` and
-``PrincipledBSDF``; the delta ``ConductorBSDF`` of the mirror rig is not
-ported).  Evaluation is in the local shading frame (+z = normal) and returns
+Counterpart of the JAX package's ``models/bsdf.py`` (``DiffuseBSDF``,
+``PrincipledBSDF`` and ``ConductorBSDF``).  Evaluation is in the local shading frame (+z = normal) and returns
 values *premultiplied by the outgoing cosine*.
 
 Albedo and roughness are constants or (Z, Y, X, C) volume textures sampled
@@ -22,7 +22,7 @@ from .. import resolve_device
 from ..ops import grid as gridops
 from ..ops.sampling import cosine_hemisphere_pdf, square_to_cosine_hemisphere
 
-__all__ = ["DiffuseBSDF", "PrincipledBSDF"]
+__all__ = ["ConductorBSDF", "DiffuseBSDF", "PrincipledBSDF"]
 
 
 def _eval_texture(const, tex, p):
@@ -31,6 +31,40 @@ def _eval_texture(const, tex, p):
     if tex is None:
         return const.expand(p.shape[:-1] + const.shape)
     return torch.stack([gridops.grid_eval_trilinear(tex[..., c], p) for c in range(tex.shape[-1])], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConductorBSDF:
+    """Smooth (delta) specular conductor.
+
+    Delta-lobe conventions: ``eval`` and ``eval_pdf`` are identically zero (a
+    delta has no continuous density); ``sample`` returns the mirror direction
+    with ``pdf = 1`` and ``weight = reflectance``.  Integrators read
+    ``delta`` and give a BSDF-sampled delta bounce MIS weight 1.
+    """
+
+    reflectance: torch.Tensor  # (3,)
+    delta = True
+
+    @classmethod
+    def create(cls, reflectance=(0.95, 0.95, 0.95), device=None):
+        return cls(reflectance=torch.as_tensor(reflectance, dtype=torch.float32, device=resolve_device(device)))
+
+    def eval(self, si, wo_local):
+        return torch.zeros(wo_local.shape[:-1] + (3,), dtype=wo_local.dtype, device=wo_local.device)
+
+    def eval_pdf(self, si, wo_local):
+        return self.eval(si, wo_local), torch.zeros_like(wo_local[..., 0])
+
+    def sample(self, si, u2):
+        """→ (wo_local = mirror(wi), pdf = 1, weight = reflectance); zero
+        below the horizon."""
+        wi = si.wi
+        wo = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+        valid = wi[..., 2] > 0
+        pdf = valid.to(wi.dtype)
+        weight = torch.where(valid[..., None], self.reflectance, torch.zeros_like(self.reflectance))
+        return wo, pdf, weight
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,18 @@
-"""Emitters: a constant environment light and an equirect grid envmap.
+"""Emitters: constant and vMF environment lights, an equirect grid envmap,
+and a rectangular area light.
 
 Counterpart of the JAX package's ``models/emitter.py`` (``ConstantEmitter``,
-``GridEnvmap``, ``make_gradient_envmap``).  Each emitter provides:
+``VMFEmitter``, ``GridEnvmap``, ``AreaEmitter``, ``make_gradient_envmap``).
+Each environment emitter provides:
 
   * ``eval(d)``              — radiance arriving from direction d (world)
   * ``sample_direction(u2)`` — (d, pdf, radiance) importance sample
   * ``pdf_direction(d)``     — density of that sampler
+  * ``power_proxy()``        — approximate emitted power (emitter selection)
 
-Directions always point *away* from the shading point.  Since the scene's
-only occluder is the SDF, emitters are "at infinity".
+Directions always point *away* from the shading point, and environment
+emitters are "at infinity".  The :class:`AreaEmitter` sits at a finite
+position: its sampler returns the distance that bounds the shadow ray.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.sampling import square_to_uniform_sphere
+from ..ops.interaction import coordinate_frame
+from ..ops.sampling import square_to_uniform_sphere, square_to_vmf, vmf_pdf
+from ..ops.vecmath import normalize
 
-__all__ = ["ConstantEmitter", "GridEnvmap", "make_gradient_envmap"]
+__all__ = ["ConstantEmitter", "VMFEmitter", "GridEnvmap", "AreaEmitter", "make_gradient_envmap"]
 
 _INV_4PI = 1.0 / (4.0 * math.pi)
 
@@ -79,6 +85,62 @@ class ConstantEmitter:
 
     def pdf_direction(self, d):
         return torch.full(d.shape[:-1], _INV_4PI, dtype=d.dtype, device=d.device)
+
+    def power_proxy(self):
+        """Approximate emitted power ∫ L dω (emitter-selection weights)."""
+        return 4.0 * math.pi * torch.mean(self.radiance)
+
+
+@dataclasses.dataclass(frozen=True)
+class VMFEmitter:
+    """vMF-lobe environment light plus an ambient floor, so that silhouettes
+    stay visible from every view."""
+
+    mu: torch.Tensor       # (3,) unit lobe direction
+    scale: torch.Tensor    # (3,) lobe radiance scale
+    ambient: torch.Tensor  # (3,)
+    kappa: float = 20.0
+
+    # share of the sampling effort on the lobe (the rest: uniform sphere)
+    LOBE_WEIGHT = 0.7
+
+    @classmethod
+    def create(cls, mu=(0.5, 0.8, -0.3), scale=(6.0, 6.0, 6.0), ambient=(0.15, 0.15, 0.15), kappa=20.0,
+               device=None):
+        device = resolve_device(device)
+        return cls(
+            mu=normalize(torch.as_tensor(mu, dtype=torch.float32, device=device)),
+            scale=torch.as_tensor(scale, dtype=torch.float32, device=device),
+            ambient=torch.as_tensor(ambient, dtype=torch.float32, device=device),
+            kappa=float(kappa),
+        )
+
+    def eval(self, d):
+        lobe = vmf_pdf(torch.sum(d * self.mu, -1), self.kappa)
+        return lobe[..., None] * self.scale + self.ambient
+
+    def sample_direction(self, u2):
+        """The lobe with probability 0.7, else the uniform sphere; ``u[0]``
+        picks the component and is re-stretched for reuse."""
+        w = self.LOBE_WEIGHT
+        pick_lobe = u2[..., 0] < w
+        u0 = torch.where(pick_lobe, u2[..., 0] / w, (u2[..., 0] - w) / (1.0 - w))
+        u = torch.stack([u0, u2[..., 1]], -1)
+        local = square_to_vmf(u, self.kappa)
+        # rotate +z onto mu
+        mu = self.mu.expand(local.shape)
+        s, t = coordinate_frame(mu)
+        d_lobe = local[..., 0:1] * s + local[..., 1:2] * t + local[..., 2:3] * mu
+        d = torch.where(pick_lobe[..., None], d_lobe, square_to_uniform_sphere(u))
+        return d, self.pdf_direction(d), self.eval(d)
+
+    def pdf_direction(self, d):
+        w = self.LOBE_WEIGHT
+        return w * vmf_pdf(torch.sum(d * self.mu, -1), self.kappa) + (1.0 - w) * _INV_4PI
+
+    def power_proxy(self):
+        # the vMF lobe density integrates to 1 over the sphere
+        return torch.mean(self.scale) + 4.0 * math.pi * torch.mean(self.ambient)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +279,100 @@ class GridEnvmap:
         planar = self.pdf_table[GridEnvmap._cell_index(self.image, d)]
         sin_theta = torch.sqrt(torch.clamp_min(1.0 - d[..., 1] * d[..., 1], 1e-12))
         return planar / sin_theta
+
+    def power_proxy(self):
+        h, w, _ = self.image.shape
+        theta = (torch.arange(h, dtype=torch.float32, device=self.image.device) + 0.5) / h * math.pi
+        d_omega = (2.0 * math.pi / w) * (math.pi / h) * torch.sin(theta)
+        return torch.sum(self.image.mean(-1) * d_omega[:, None])
+
+
+@dataclasses.dataclass(frozen=True)
+class AreaEmitter:
+    """One-sided rectangular area light ``corner + s·e0 + t·e1``, s, t ∈
+    [0, 1], emitting from the face its normal ``normalize(e0 × e1)`` points
+    toward.  It sits at a finite position: NEE returns a sample distance,
+    so that shadow rays are traced with ``maxt``, and camera and BSDF rays
+    can hit the emitting surface itself.  The rect is opaque geometry from
+    both sides."""
+
+    corner: torch.Tensor    # (3,)
+    e0: torch.Tensor        # (3,) first edge vector
+    e1: torch.Tensor        # (3,) second edge vector
+    radiance: torch.Tensor  # (3,)
+
+    @classmethod
+    def create(cls, corner, e0, e1, radiance=(10.0, 10.0, 10.0), device=None):
+        device = resolve_device(device)
+        f = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+        return cls(corner=f(corner), e0=f(e0), e1=f(e1), radiance=f(radiance))
+
+    @property
+    def _normal_area(self):
+        c = torch.linalg.cross(self.e0, self.e1)
+        area = torch.sqrt(torch.sum(c * c))
+        return c / torch.clamp_min(area, 1e-20), area
+
+    def sample_from(self, p_ref, u2):
+        """A point on the rect, seen from ``p_ref``: ``(d, dist, pdf,
+        radiance)`` — unit direction, distance to the sample, solid-angle
+        density ``dist² / (A cos θ_l)`` and radiance (zero from the back
+        face)."""
+        n, area = self._normal_area
+        q = self.corner + u2[..., 0:1] * self.e0 + u2[..., 1:2] * self.e1
+        vec = q - p_ref
+        dist = torch.sqrt(torch.sum(vec * vec, -1))
+        d = vec / torch.clamp_min(dist, 1e-12)[..., None]
+        cos_l = torch.sum(-d * n, -1)  # emission only from the front face
+        front = cos_l > 1e-6
+        pdf = dist**2 / (area * torch.clamp_min(cos_l, 1e-6))
+        pdf = torch.where(front, pdf, torch.zeros_like(pdf))
+        rad = torch.where(front[..., None], self.radiance, torch.zeros_like(self.radiance))
+        return d, dist, pdf, rad
+
+    def _plane_hit(self, o, d):
+        n, _ = self._normal_area
+        denom = torch.sum(d * n, -1)
+        grazing = denom.abs() < 1e-8
+        t = torch.sum((self.corner - o) * n, -1) / torch.where(grazing, torch.ones_like(denom), denom)
+        q = o + t[..., None] * d - self.corner
+        s0 = torch.sum(q * self.e0, -1) / torch.clamp_min(torch.sum(self.e0 * self.e0), 1e-20)
+        s1 = torch.sum(q * self.e1, -1) / torch.clamp_min(torch.sum(self.e1 * self.e1), 1e-20)
+        inside = (s0 >= 0) & (s0 <= 1) & (s1 >= 0) & (s1 <= 1)
+        valid = ~grazing & (t > 1e-6) & inside
+        front = denom < 0  # the ray approaches the emitting face
+        return t, valid, front
+
+    def ray_hit(self, o, d):
+        """Ray–rect intersection of the front face → t (inf = miss or back
+        face)."""
+        t, valid, front = self._plane_hit(o, d)
+        return torch.where(valid & front, t, torch.full_like(t, math.inf))
+
+    def occlude_t(self, o, d):
+        """Hit distance of either face (inf = miss)."""
+        t, valid, _ = self._plane_hit(o, d)
+        return torch.where(valid, t, torch.full_like(t, math.inf))
+
+    def eval_hit(self, o, d):
+        """Radiance seen along (o, d) where it hits the front face, else 0;
+        and the hit distance."""
+        t = self.ray_hit(o, d)
+        rad = torch.where(torch.isfinite(t)[..., None], self.radiance, torch.zeros_like(self.radiance))
+        return rad, t
+
+    def pdf_direction_from(self, p_ref, d):
+        """Solid-angle density of :meth:`sample_from` producing ``d``."""
+        n, area = self._normal_area
+        t = self.ray_hit(p_ref, d)
+        cos_l = torch.clamp_min(torch.sum(-d * n, -1), 1e-6)
+        pdf = t**2 / (area * cos_l)
+        return torch.where(torch.isfinite(t), pdf, torch.zeros_like(pdf))
+
+    def power_proxy(self):
+        # one-sided Lambertian rect: ∫ L cos θ dω dA = π · A · L
+        _, area = self._normal_area
+        return math.pi * area * torch.mean(self.radiance)
 
 
 def make_gradient_envmap(h=64, w=128, top=(1.2, 1.1, 1.0), bottom=(0.15, 0.18, 0.25),

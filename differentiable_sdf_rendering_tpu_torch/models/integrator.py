@@ -1,5 +1,4 @@
-"""The reparameterized direct-illumination integrator and the wavefront
-render pipeline.
+"""The reparameterized integrators and the wavefront render pipeline.
 
 Counterpart of the JAX package's ``models/integrator.py``: one wavefront of
 ``(W+2b)·(H+2b)·spp`` ray lanes per (view, mode), with
@@ -8,12 +7,15 @@ Counterpart of the JAX package's ``models/integrator.py``: one wavefront of
   * grad mode   — warp-field reparameterized directions, attached
     determinants, attached film-position/filter-weight reweighting.
 
-Implemented here: ``sdf_direct_reparam`` (direct illumination with detached
-emitter sampling and a reparameterized shadow ray at depth 1) on pure-SDF
-scenes under an environment emitter, ``warp_kind`` in {'warp', 'dummy'}.
-MIS, antithetic sampling, the convolution-warp baseline, meshes, area lights
-and the silhouette / simple-shading / PRB integrators are not, and asking
-for one raises.
+Integrators, by name:
+  * ``sdf_silhouette_reparam``     — binary coverage × det
+  * ``sdf_simple_shading_reparam`` — n·l debug shading × det
+  * ``sdf_direct_reparam``         — direct illumination with detached NEE,
+    reparameterized shadow rays at depth 1, optional MIS BSDF sampling.
+Scenes may add a triangle mesh (merged with the SDF by nearest t; mirror
+triangles get one specular bounce) and an area emitter at a finite position.
+``warp_kind`` is 'warp' or 'dummy'; the convolution-warp baseline and the
+PRB integrator are not implemented here, and asking for one raises.
 
 The training loop renders primal at high spp, takes dLoss/dimage, and pulls
 it back through a (lower-spp) grad-mode render with autograd.
@@ -32,15 +34,16 @@ import torch
 
 from .. import resolve_device
 from ..ops.film import BORDER, develop, splat
-from ..ops.interaction import compute_surface_interaction
-from ..ops.sampling import lane_uniforms
+from ..ops.interaction import compute_surface_interaction, coordinate_frame
+from ..ops.mesh_intersect import mesh_intersect_full
+from ..ops.sampling import lane_uniforms, mis_weight
 from ..ops.sdf import TraceParams
-from ..ops.trace import sphere_trace
-from ..ops.vecmath import replace_grad
-from ..ops.warp import WarpConfig, reparameterize
+from ..ops.trace import sphere_trace, sphere_trace_warp
+from ..ops.vecmath import normalize, replace_grad
+from ..ops.warp import WarpConfig, reparameterize, warp_eval
 
 __all__ = [
-    "RenderConfig", "MAX_LANES", "lane_chunks", "render_lane_block", "render", "render_chunked",
+    "RenderConfig", "MAX_LANES", "lane_chunks", "render_lane_block", "render", "render_chunked", "render_aovs",
 ]
 
 # Lane cap of one chunk: bounds the live tap tensors (and, in grad mode, what
@@ -73,121 +76,325 @@ class RenderConfig:
     use_warp: bool = True
     # 'warp' | 'dummy'  ('conv', the convolution baseline, is not ported)
     warp_kind: str = "warp"
+    # mirrored pixel-jitter pairs within a pixel
     antithetic_sampling: bool = False
 
 
 def _check_supported(cfg: RenderConfig):
-    if cfg.integrator != "sdf_direct_reparam":
+    if cfg.integrator not in _INTEGRATORS:
         raise NotImplementedError(f"integrator '{cfg.integrator}' is not ported")
     if cfg.warp_kind not in ("warp", "dummy"):
         raise NotImplementedError(f"warp_kind '{cfg.warp_kind}' is not ported")
-    if cfg.use_mis:
-        raise NotImplementedError("MIS BSDF sampling (use_mis) is not ported")
-    if cfg.antithetic_sampling:
-        raise NotImplementedError("antithetic sampling is not ported")
 
 
 def _ray_intersect(scene, o, d, depth, cfg: RenderConfig, mode, maxt=math.inf, occlusion=False):
-    """SDF intersect.  Returns ``(its_t, d_reparam, det)``.
+    """Hybrid intersect: the SDF trace merged with the scene's optional
+    :class:`TriangleMesh` by nearest t.  Returns ``(its_t, d_reparam, det,
+    mesh_aux)``, where ``mesh_aux`` is None for a pure-SDF scene and
+    ``(mesh_t, mesh_n, mesh_albedo, mesh_mirror)`` otherwise.  ``maxt``
+    bounds the ray (finite-distance shadow rays to an area emitter).
 
     ``occlusion=True`` marks a binary visibility query: the intersection
     refinement is skipped (it moves ``its_t`` by O(ε) but never flips
-    finite↔inf, and ``isfinite(its_t)`` is the only consumed bit)."""
+    finite↔inf, and ``isfinite(its_t)`` is the only consumed bit).  A
+    per-lane bool tensor masks the refinement per lane instead, so that one
+    trace carries shadow and scattering rays together."""
     trace = cfg.trace
-    if occlusion and trace.refine_intersection:
+    refine_active = True
+    if isinstance(occlusion, torch.Tensor):
+        refine_active = ~occlusion
+    elif occlusion and trace.refine_intersection:
         trace = dataclasses.replace(trace, refine_intersection=False)
     reparam = mode != "primal" and cfg.use_warp and cfg.warp_kind != "dummy"
     if reparam and cfg.warp.max_reparam_depth >= 0 and depth > cfg.warp.max_reparam_depth:
         reparam = False
     if not reparam:
-        its_t = sphere_trace(scene.sdf, o, d, trace, maxt=maxt)
-        return its_t, d, torch.ones(o.shape[:-1], dtype=o.dtype, device=o.device)
-    return reparameterize(scene.sdf, o, d, cfg.warp, trace, maxt=maxt)
+        its_t = sphere_trace(scene.sdf, o, d, trace, maxt=maxt, refine_active=refine_active)
+        d1, det = d, torch.ones(its_t.shape, dtype=o.dtype, device=o.device)
+    else:
+        its_t, d1, det = reparameterize(scene.sdf, o, d, cfg.warp, trace, maxt=maxt, refine_active=refine_active)
+    if scene.mesh is None:
+        return its_t, d1, det, None
+    # Intersect the *reparameterized* ray: mesh radiance seen past a moving
+    # SDF silhouette then carries the boundary gradient through d1.
+    maux = mesh_intersect_full(scene.mesh, o, d1)
+    return torch.minimum(its_t, maux[0]), d1, det, maux
+
+
+def _compute_si(scene, o, d1, its_t, maux, differentiable):
+    """Surface interaction of the merged hit: the SDF's, overridden on the
+    lanes whose nearest hit is the mesh (geometric mesh normal, hit point
+    attached through d1 and the Möller–Trumbore t).  Returns
+    ``(si, is_mesh)``, ``is_mesh`` None without a mesh."""
+    si = compute_surface_interaction(scene.sdf, o, d1, its_t, differentiable=differentiable)
+    if maux is None:
+        return si, None
+    mt, mn = maux[0], maux[1]
+    is_mesh = torch.isfinite(mt) & (mt <= its_t)
+    t_m = torch.where(is_mesh, mt, torch.zeros_like(mt))
+    p_m = o + t_m[..., None] * d1
+    s_m, b_m = coordinate_frame(mn.detach())
+    m3 = is_mesh[..., None]
+    si = si.replace(
+        valid=si.valid | is_mesh,
+        t=torch.where(is_mesh, t_m, si.t),
+        p=torch.where(m3, p_m, si.p),
+        n=torch.where(m3, mn, si.n),
+        s=torch.where(m3, s_m, si.s),
+        b=torch.where(m3, b_m, si.b),
+    )
+    # wi lives in the local frame: recompute it in the overridden one
+    return si.replace(wi=torch.where(m3, si.to_local(-d1), si.wi)), is_mesh
+
+
+def _mesh_diffuse(albedo, wo_local):
+    """Lambertian eval and pdf of an auxiliary-mesh surface; ``albedo`` is
+    the per-lane (N, 3) reflectance of the hit triangle."""
+    cos = torch.clamp_min(wo_local[..., 2], 0.0)
+    return albedo * (cos / math.pi)[..., None], cos / math.pi
+
+
+def _sample_silhouette(scene, o, d, uni, cfg, mode):
+    """Binary coverage × det."""
+    its_t, d1, det, _ = _ray_intersect(scene, o, d, 0, cfg, mode)
+    hit = torch.isfinite(its_t).to(o.dtype)
+    rgb = (hit * det)[..., None].expand(hit.shape + (3,))
+    return rgb, torch.ones_like(hit, dtype=torch.bool), det, d1
+
+
+def _sample_simple_shading(scene, o, d, uni, cfg, mode):
+    """Headlight-free debug shading: max(n · normalize(1, 1, 1), 0) × det."""
+    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode)
+    si, _ = _compute_si(scene, o, d1, its_t, maux, differentiable=mode != "primal")
+    l_dir = normalize(torch.ones(3, dtype=o.dtype, device=o.device))
+    shade = torch.clamp_min(torch.sum(si.n * l_dir, -1), 0.0)
+    shade = torch.where(si.valid, shade, torch.zeros_like(shade))
+    rgb = (shade * det)[..., None].expand(shade.shape + (3,))
+    return rgb, torch.ones_like(shade, dtype=torch.bool), det, d1
 
 
 def _emitted_along(scene, p, d):
     """Emitted radiance arriving at ``p`` from direction ``d`` and the
-    occlusion distance of emitter geometry (none here: always inf)."""
+    distance of the nearest emitter-geometry hit (inf = none).  The area
+    emitter's rect is opaque geometry whose front face emits; past it, or
+    with no rect, the environment is seen."""
     env = scene.emitter.eval(d)
-    return env, torch.full(d.shape[:-1], math.inf, dtype=d.dtype, device=d.device)
+    if scene.area_emitter is None:
+        return env, torch.full(d.shape[:-1], math.inf, dtype=d.dtype, device=d.device)
+    area = scene.area_emitter
+    t_geo = area.occlude_t(p, d)
+    t_front = area.ray_hit(p, d)
+    rad = torch.where(
+        torch.isfinite(t_front)[..., None], area.radiance.expand(env.shape),
+        torch.where(torch.isfinite(t_geo)[..., None], torch.zeros_like(env), env),
+    )
+    return rad, t_geo
+
+
+def _area_select_prob(scene):
+    """Probability of picking the area emitter in the NEE mixture: in
+    proportion to the emitters' approximate power, clipped to [0.02, 0.98]
+    so that both components keep a density wherever they carry radiance
+    (unbiased MIS weights); detached."""
+    pa = scene.area_emitter.power_proxy()
+    pe = scene.emitter.power_proxy()
+    p = pa / torch.clamp_min(pa + pe, 1e-12)
+    return torch.clamp(p, 0.02, 0.98).detach()
+
+
+def _emitter_pdf(scene, p, d):
+    """Solid-angle density of :func:`_nee_sample` at ``p`` producing ``d``."""
+    pdf = scene.emitter.pdf_direction(d)
+    if scene.area_emitter is None:
+        return pdf
+    p_area = _area_select_prob(scene)
+    return (1.0 - p_area) * pdf + p_area * scene.area_emitter.pdf_direction_from(p, d)
 
 
 def _nee_sample(scene, p, u2):
     """Sample an emitter direction from ``p``: ``(d, pdf, radiance, maxt)``
-    with ``maxt`` the distance bounding the shadow ray (inf for environment
-    directions)."""
-    d, pdf, rad = scene.emitter.sample_direction(u2)
-    return d, pdf, rad, torch.full(pdf.shape, math.inf, dtype=pdf.dtype, device=pdf.device)
+    with ``maxt`` the distance to the emitter surface that bounds the shadow
+    ray (inf for environment directions).  With an environment and an area
+    emitter, a power-proportional mixture (:func:`_area_select_prob`)
+    whose selector uniform is re-stretched for reuse."""
+    if scene.area_emitter is None:
+        d, pdf, rad = scene.emitter.sample_direction(u2)
+        return d, pdf, rad, torch.full(pdf.shape, math.inf, dtype=pdf.dtype, device=pdf.device)
+    p_area = _area_select_prob(scene)
+    pick_area = u2[..., 0] < p_area
+    u0 = torch.where(pick_area, u2[..., 0] / p_area, (u2[..., 0] - p_area) / (1.0 - p_area))
+    u = torch.stack([torch.clamp(u0, 0.0, 1.0), u2[..., 1]], -1)
+    d_env, _, _ = scene.emitter.sample_direction(u)
+    d_area, _, _, _ = scene.area_emitter.sample_from(p, u)
+    d = torch.where(pick_area[..., None], d_area, d_env)
+    pdf = _emitter_pdf(scene, p, d)
+    rad, t_geo = _emitted_along(scene, p, d)
+    return d, pdf, rad, t_geo
+
+
+def _mirror_rays(si, o, d1, is_mirror, cfg: RenderConfig):
+    """The rays that leave the ``is_mirror`` lanes, ``(o_r, d_r)``: ``d1``
+    reflected about the hit's normal (on a mirror lane, the fixed facet
+    normal), starting ``shadow_eps`` off the hit; other lanes keep
+    ``(o, d1)``."""
+    mirror3 = is_mirror[..., None]
+    d_r = d1 - 2.0 * torch.sum(d1 * si.n, -1, keepdim=True) * si.n
+    return torch.where(mirror3, si.p + d_r * cfg.shadow_eps, o), torch.where(mirror3, d_r, d1)
+
+
+def _mirror_bounce(scene, o, d1, its_t, det, si, is_mesh, maux, cfg, mode):
+    """One specular bounce: lanes whose nearest hit is a mirror triangle
+    continue along the reflected ray.  The depth-1 re-intersect is itself
+    reparameterized, so silhouette gradients of the SDF seen in the mirror
+    flow through the reflected direction.  Returns the merged ``(si, its_t,
+    o, dl, det, tint, is_mesh)``, ``dl`` the direction of the emitted-
+    radiance lookup; a second mesh hit seen in the mirror absorbs."""
+    if cfg.decouple_reparam:
+        raise NotImplementedError("mirror scenes with decouple_reparam are not supported")
+    is_mirror = is_mesh & maux[3]
+    mirror3 = is_mirror[..., None]
+    o_r, d_r = _mirror_rays(si, o, d1, is_mirror, cfg)
+    t2, d2, det2, maux2 = _ray_intersect(scene, o_r, d_r, 1, cfg, mode)
+    si2, is_mesh2 = _compute_si(scene, o_r, d2, t2, maux2,
+                                differentiable=mode != "primal" and not cfg.debug_nondiff_si)
+    return (
+        si2.replace(valid=si2.valid & ~is_mesh2).where(is_mirror, si),
+        torch.where(is_mirror, t2, its_t),
+        torch.where(mirror3, o_r, o),
+        torch.where(mirror3, d2, d1),
+        det * torch.where(is_mirror, det2, torch.ones_like(det2)),
+        torch.where(mirror3, maux[2], torch.ones_like(maux[2])),
+        is_mesh & ~is_mirror,
+    )
 
 
 def _sample_direct(scene, o, d, uni, cfg: RenderConfig, mode):
-    """Direct illumination with emitter sampling.
-    Returns ``(rgb, valid_ray, det, d1)``."""
+    """Direct illumination with NEE, a reparameterized shadow ray at depth 1,
+    optional MIS BSDF sampling and, on a scene with mirror triangles, one
+    specular bounce.  Returns ``(rgb, valid_ray, det, d1)``."""
     reparametrize = mode != "primal"
-    its_t, d1, det = _ray_intersect(scene, o, d, 0, cfg, mode)
-    si = compute_surface_interaction(
-        scene.sdf, o, d1, its_t, differentiable=reparametrize and not cfg.debug_nondiff_si
-    )
+    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode)
+    si, is_mesh = _compute_si(scene, o, d1, its_t, maux,
+                              differentiable=reparametrize and not cfg.debug_nondiff_si)
     if cfg.debug_detach_normals:
         si = si.replace(n=si.n.detach(), wi=si.wi.detach())
 
-    throughput = det[..., None] * torch.ones(o.shape[:-1] + (3,), dtype=o.dtype, device=o.device)
-    # Emitted radiance seen by the ray: the environment on escaped lanes
-    # (attached direction → silhouette gradients of the background)
-    emitted, t_light = _emitted_along(scene, o, d1)
+    tint = torch.ones(o.shape[:-1] + (3,), dtype=o.dtype, device=o.device)
+    m_alb = maux[2] if maux is not None else None
+    dl = d1  # direction of the emitted-radiance lookup
+    if scene.mesh is not None and scene.mesh.material != "diffuse":
+        si, its_t, o, dl, det, tint, is_mesh = _mirror_bounce(scene, o, d1, its_t, det, si, is_mesh, maux, cfg,
+                                                              mode)
+        if scene.mesh.material == "mirror":
+            maux = m_alb = None  # no Lambertian mesh lane is left
+
+    throughput = det[..., None] * tint  # reparam det × mirror tint
+    # Emitted radiance seen by the (possibly mirror-reflected) ray: the
+    # environment on escaped lanes, the area emitter's front face where its
+    # rect is the nearest hit (attached direction → silhouette gradients of
+    # the background)
+    emitted, t_light = _emitted_along(scene, o, dl)
     light_first = torch.isfinite(t_light) & (t_light < its_t)
-    shade = si.valid & ~light_first
+    shade = si.valid & ~light_first  # surface shading where the SDF/mesh hit is nearest
     see_emitted = light_first | ~si.valid
+    valid_ray = si.valid | light_first
     if cfg.hide_emitters:
         see_emitted = torch.zeros_like(see_emitted)
-    result = torch.where(see_emitted[..., None], emitted, torch.zeros_like(emitted)) * throughput
-    valid_ray = si.valid | light_first
-    if not cfg.hide_emitters:
+    else:
         valid_ray = torch.ones_like(valid_ray)
+    result = torch.where(see_emitted[..., None], emitted, torch.zeros_like(emitted)) * throughput
 
     # ---------------- Emitter sampling (detached) ----------------
-    active_e = shade
     si_p_det = si.p.detach()
-    ds_d, ds_pdf, ds_rad, ds_dist = _nee_sample(scene, si_p_det, uni[:, 2:4].detach())
-    ds_d = ds_d.detach()
-    ds_pdf = ds_pdf.detach()
-    ds_dist = ds_dist.detach()
-    active_e = active_e & (ds_pdf > 0)
+    ds_d, ds_pdf, ds_rad, ds_dist = (x.detach() for x in _nee_sample(scene, si_p_det, uni[:, 2:4].detach()))
+    active_e = shade & (ds_pdf > 0)
     if cfg.detach_indirect_si:
         shadow_o = si_p_det
     elif cfg.decouple_reparam:
         # spawn from the interaction of the *unreparameterized* ray: p
         # attached through the implicit depth but not the warped direction
-        si_d0 = compute_surface_interaction(scene.sdf, o, d, its_t, differentiable=reparametrize)
-        shadow_o = si_d0.p
+        shadow_o = compute_surface_interaction(scene.sdf, o, d, its_t, differentiable=reparametrize).p
     else:
         shadow_o = si.p  # attached: nested reparameterization
     shadow_o = shadow_o + ds_d * cfg.shadow_eps
     # Finite-distance shadow ray: stop just short of the emitter sample;
     # inf for environment directions.
-    shadow_maxt = torch.where(
-        torch.isfinite(ds_dist), ds_dist * (1.0 - 1e-3) - cfg.shadow_eps,
-        torch.full_like(ds_dist, math.inf),
-    )
-    occluded_t, _, det_e = _ray_intersect(
-        scene, shadow_o, ds_d, 1, cfg, mode, maxt=shadow_maxt, occlusion=True
-    )
+    shadow_maxt = torch.where(torch.isfinite(ds_dist), ds_dist * (1.0 - 1e-3) - cfg.shadow_eps,
+                              torch.full_like(ds_dist, math.inf))
+
+    if cfg.use_mis:
+        # The shadow rays and the BSDF-sampled rays go through one depth-1
+        # trace of 2N lanes, as in the JAX package: a lane's result does not
+        # depend on the lanes beside it, and the occlusion mask keeps the
+        # refinement off the shadow half.
+        si_det = si.detach()
+        bs_wo, bs_pdf, bs_weight = scene.bsdf.sample(si_det, uni[:, 4:6].detach())
+        bsdf_d = si_det.to_world(bs_wo).detach()
+        bsdf_o = si.p + bsdf_d * cfg.shadow_eps
+        n_l = shadow_o.shape[0]
+        t_m, d_m, det_m, _ = _ray_intersect(
+            scene, torch.cat([shadow_o, bsdf_o]), torch.cat([ds_d, bsdf_d]), 1, cfg, mode,
+            maxt=torch.cat([shadow_maxt, torch.full_like(shadow_maxt, math.inf)]),
+            occlusion=torch.cat([torch.ones(n_l, dtype=torch.bool, device=o.device),
+                                 torch.zeros(n_l, dtype=torch.bool, device=o.device)]),
+        )
+        occluded_t, det_e = t_m[:n_l], det_m[:n_l]
+        t_b, d_b, det_b = t_m[n_l:], d_m[n_l:], det_m[n_l:]
+    else:
+        occluded_t, _, det_e, _ = _ray_intersect(scene, shadow_o, ds_d, 1, cfg, mode, maxt=shadow_maxt,
+                                                 occlusion=True)
     visibility = (~torch.isfinite(occluded_t)).to(o.dtype)
 
     wo = si.to_local(ds_d)
-    emitter_val = torch.where(
-        (active_e & (ds_pdf > 0))[..., None],
-        ds_rad / torch.clamp_min(ds_pdf, 1e-12)[..., None],
-        torch.zeros_like(ds_rad),
-    )
-    bsdf_val = scene.bsdf.eval(si, wo)
-    nee = visibility[..., None] * bsdf_val * emitter_val
+    emitter_val = torch.where(active_e[..., None], ds_rad / torch.clamp_min(ds_pdf, 1e-12)[..., None],
+                              torch.zeros_like(ds_rad))
+    if cfg.use_mis:
+        bsdf_val, bsdf_pdf = scene.bsdf.eval_pdf(si, wo)
+        if maux is not None:
+            mesh_val, mesh_pdf = _mesh_diffuse(m_alb, wo)
+            bsdf_val = torch.where(is_mesh[..., None], mesh_val, bsdf_val)
+            bsdf_pdf = torch.where(is_mesh, mesh_pdf, bsdf_pdf)
+        nee = visibility[..., None] * bsdf_val * emitter_val * mis_weight(ds_pdf, bsdf_pdf.detach())[..., None]
+    else:
+        bsdf_val = scene.bsdf.eval(si, wo)
+        if maux is not None:
+            bsdf_val = torch.where(is_mesh[..., None], _mesh_diffuse(m_alb, wo)[0], bsdf_val)
+        nee = visibility[..., None] * bsdf_val * emitter_val
     nee_throughput = throughput.detach() if cfg.debug_detach_nee_throughput else throughput
     contrib = nee_throughput * nee * det_e[..., None]
     result = result + torch.where(active_e[..., None], contrib, torch.zeros_like(contrib))
 
+    # ---------------- BSDF sampling (MIS) ----------------
+    if cfg.use_mis:
+        active_b = shade & (bs_pdf > 0)
+        bsdf_val = scene.bsdf.eval(si, bs_wo)
+        if maux is not None:
+            # mesh lanes: the Lambertian f of the mesh albedo; bs_pdf stays
+            # the sampler's own pdf, so the estimator remains unbiased
+            bsdf_val = torch.where(is_mesh[..., None], _mesh_diffuse(m_alb, bs_wo)[0], bsdf_val)
+        # emitted radiance the BSDF ray reaches: the environment if it
+        # escapes the SDF and mesh, the area emitter if its rect is nearest
+        L_b, t_light_b = _emitted_along(scene, bsdf_o.detach(), d_b)
+        reach_emitter = torch.where(torch.isfinite(t_light_b), t_light_b < t_b, ~torch.isfinite(t_b))
+        if scene.bsdf.delta:
+            # a delta lobe: eval ≡ 0, the value is in the sample weight, and
+            # emitter sampling cannot produce its direction → MIS weight 1
+            contrib = bs_weight * L_b
+        else:
+            w_mis_b = mis_weight(bs_pdf, _emitter_pdf(scene, bsdf_o.detach(), bsdf_d))
+            contrib = bsdf_val / torch.clamp_min(bs_pdf, 1e-12)[..., None] * L_b * w_mis_b[..., None]
+        contrib = throughput * contrib * det_b[..., None]
+        result = result + torch.where((active_b & reach_emitter)[..., None], contrib, torch.zeros_like(contrib))
+
     result = torch.where(valid_ray[..., None], result, torch.zeros_like(result))
     return result, valid_ray, det, d1
+
+
+_INTEGRATORS = {
+    "sdf_silhouette_reparam": _sample_silhouette,
+    "sdf_simple_shading_reparam": _sample_simple_shading,
+    "sdf_direct_reparam": _sample_direct,
+}
 
 
 def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal"):
@@ -209,10 +416,21 @@ def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal
     px = (pix % pw).to(torch.float32) - b
     uni = lane_uniforms(seed, lane, 6)
 
-    pos = torch.stack([px + uni[:, 0], py + uni[:, 1]], dim=-1)  # unpadded px coords
+    jx, jy = uni[:, 0], uni[:, 1]
+    if cfg.antithetic_sampling:
+        # Mirrored jitter pairs within a pixel: sample s pairs with s^1 and
+        # the odd one takes 1 - its partner's jitter; with an odd spp the
+        # last sample of a pixel has no partner and stays as drawn.
+        s_idx = lane % spp
+        partner_s = torch.where((s_idx ^ 1) < spp, s_idx ^ 1, s_idx)
+        partner = lane_uniforms(seed, lane - s_idx + partner_s, 2)
+        odd = (s_idx & 1) == 1
+        jx = torch.where(odd, 1.0 - partner[:, 0], jx)
+        jy = torch.where(odd, 1.0 - partner[:, 1], jy)
+    pos = torch.stack([px + jx, py + jy], dim=-1)  # unpadded px coords
     o, d = camera.sample_ray(pos)
 
-    rgb, valid, det, d1 = _sample_direct(scene, o, d, uni, cfg, mode)
+    rgb, valid, det, d1 = _INTEGRATORS[cfg.integrator](scene, o, d, uni, cfg, mode)
 
     if mode == "primal" or cfg.debug_detach_splat:
         splat_pos = pos
@@ -302,3 +520,47 @@ def render_chunked(scene, view_idx=0, seed=0, cfg: RenderConfig = RenderConfig()
             block = blk if block is None else block + blk
         return develop(block, border=b)
 
+
+@torch.no_grad()
+def render_aovs(scene, view_idx=0, seed=0, cfg: RenderConfig = RenderConfig(), camera=None, device=None):
+    """Diagnostic AOV images of one view, a dict of (H, W) tensors (mean
+    over ``cfg.spp`` samples a pixel, no border): depth, warp_t, weight_sum,
+    trace iteration count, warp divergence, the SDF value at the warp point,
+    the normal and ∂warp_t/∂d."""
+    device = resolve_device(device)
+    scene.require_device(device)
+    camera = _view_camera(scene, view_idx, camera)
+    W, H = camera.resx, camera.resy
+    lane = torch.arange(W * H * cfg.spp, dtype=torch.int64, device=device)
+    pix = torch.div(lane, cfg.spp, rounding_mode="floor")
+    py = torch.div(pix, W, rounding_mode="floor").to(torch.float32)
+    px = (pix % W).to(torch.float32)
+    uni = lane_uniforms(seed, lane, 2)
+    o, d = camera.sample_ray(torch.stack([px + uni[:, 0], py + uni[:, 1]], dim=-1))
+
+    res = sphere_trace_warp(scene.sdf, o, d, cfg.trace)
+    warp_ok = torch.isfinite(res.warp_t)
+    x = o + torch.where(warp_ok, res.warp_t, torch.zeros_like(res.warp_t))[..., None] * d
+    _, div = warp_eval(scene.sdf, x, d, res.warp_t, res.warp_t_d, cfg.warp,
+                       warp_weight_mult=res.warp_weight, warp_weight_mult_d=res.warp_weight_d)
+    si = compute_surface_interaction(scene.sdf, o, d, res.its_t, differentiable=False)
+    f_warp = scene.sdf.eval(torch.where(warp_ok[..., None], x, torch.full_like(x, 0.5)))
+
+    def img(v):
+        v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+        return v.reshape(H, W, cfg.spp).mean(-1)
+
+    return {
+        "depth": img(res.its_t),
+        "warp_t": img(res.warp_t),
+        "weight_sum": img(res.weight_sum),
+        "i": img(res.num_steps.to(torch.float32)),
+        "div": img(div),
+        "sdf_value": img(f_warp),
+        "nx": img(si.n[..., 0]),
+        "ny": img(si.n[..., 1]),
+        "nz": img(si.n[..., 2]),
+        "warp_t_dx": img(res.warp_t_d[..., 0]),
+        "warp_t_dy": img(res.warp_t_d[..., 1]),
+        "warp_t_dz": img(res.warp_t_d[..., 2]),
+    }

@@ -25,14 +25,13 @@ class Scene:
     bsdf: DiffuseBSDF | PrincipledBSDF
     emitter: Any
     cameras: PerspectiveCamera
-    # Auxiliary triangle mesh and finite-position area emitter of the JAX
-    # package's mixed scenes: fields kept, not implemented here (must be None).
+    # Optional auxiliary TriangleMesh of a mixed scene (a floor, a mirror);
+    # None = pure-SDF scene, and the mesh path does not run.
     mesh: Any = None
+    # Optional finite-position AreaEmitter: camera and BSDF rays can see it,
+    # NEE samples it with a finite-distance shadow ray.  None = environment
+    # lighting only.
     area_emitter: Any = None
-
-    def __post_init__(self):
-        if self.mesh is not None or self.area_emitter is not None:
-            raise NotImplementedError("mesh and area-emitter scenes are not ported")
 
     @classmethod
     def create(cls, sdf_data, bsdf=None, emitter=None, cameras=None, n_views=12, res=128,

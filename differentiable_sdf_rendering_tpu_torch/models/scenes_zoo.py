@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``models/scenes_zoo.py``: the checked-in
 directory), analytic target SDFs registered under the reference's scene
 names (both redistanced onto grids), and the per-scene rigs: a diffuse or
 principled BSDF under the procedural gradient sky or, for a ``-hdr`` scene,
-the checked-in HDR envmap.  The rigs with a mesh, an area light or a vMF
-emitter are not implemented here.
+the checked-in HDR envmap; a floor or a mirror rect under a vMF sun
+(``torus-shadow``, ``mirror-opt``); an area light over a dim ambient
+(``plane_area``, ``plane_red_object``).
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from .. import resolve_device
 from ..ops.initializers import voxel_centers
 from ..ops.redistance import redistance
 from ..utils.io import read_vol
+from ..ops.mesh_intersect import TriangleMesh
 from .bsdf import DiffuseBSDF, PrincipledBSDF
-from .emitter import GridEnvmap, make_gradient_envmap
+from .emitter import AreaEmitter, ConstantEmitter, GridEnvmap, VMFEmitter, make_gradient_envmap
 
 __all__ = ["target_sdf", "scene_rig_full", "scene_rig", "studio_hdr_envmap", "SCENE_NAMES", "ASSET_DIR"]
 
@@ -119,6 +121,12 @@ def _cubes(p):
     return d
 
 
+def _torus_shadow(p):
+    """Torus floating above the floor of its rig (shadow-driven
+    reconstruction)."""
+    return _torus(p, R=0.22, r=0.09, center=(0.5, 0.55, 0.5))
+
+
 _PROCEDURAL = {
     "dragon": _dragon_like,
     "bunny": _bunny_like,
@@ -134,18 +142,18 @@ _PROCEDURAL = {
     "cranium": lambda p: _sphere(p, (0.5, 0.5, 0.5), 0.24),
     "bench": _chair_like,
     "torus": _torus,
+    "torus-shadow": _torus_shadow,
+    "mirror-opt": _torus,
     "sphere": lambda p: _sphere(p, (0.5, 0.5, 0.5), 0.3),
     "block": lambda p: _box(p, (0.5, 0.5, 0.5), (0.25, 0.12, 0.18)),
+    # objects above a plane, lit by a finite area light
+    "plane_area": lambda p: _smooth_union(
+        _sphere(p, (0.5, 0.52, 0.5), 0.17),
+        _box(p, (0.5, 0.33, 0.5), (0.17, 0.03, 0.17)),
+        0.03,
+    ),
+    "plane_red_object": lambda p: _torus(p, R=0.2, r=0.08, center=(0.5, 0.5, 0.5)),
 }
-
-# Scenes of the JAX package whose rig needs a mesh, an area light or a vMF
-# emitter: named so that asking for one says what is missing.
-_UNPORTED_RIGS = ("torus-shadow", "mirror-opt", "plane_area", "plane_red_object")
-
-
-def _check_rig(scene_name: str):
-    if scene_name in _UNPORTED_RIGS:
-        raise NotImplementedError(f"the rig of scene '{scene_name}' (mesh, area light or vMF emitter) is not ported")
 
 SCENE_NAMES = sorted(_PROCEDURAL)
 
@@ -173,7 +181,6 @@ def target_sdf(scene_name: str, res: int = 128, scene_dir: str | None = None, de
     device = resolve_device(device)
     if scene_name.endswith("-hdr"):
         scene_name = scene_name[: -len("-hdr")]
-    _check_rig(scene_name)
     for sdir in (scene_dir, ASSET_DIR):
         if sdir is None:
             continue
@@ -188,19 +195,46 @@ def target_sdf(scene_name: str, res: int = 128, scene_dir: str | None = None, de
 
 
 def scene_rig_full(scene_name: str, param_keys=("sdf",), device=None):
-    """Per-scene emitter + BSDF.  Returns a dict with keys ``bsdf``,
-    ``emitter``, ``area_emitter``, ``mesh`` (the last two always ``None``
-    here).  A scene name holding ``principled``, or more than two optimized
-    parameters, gives a :class:`PrincipledBSDF`; a ``-hdr`` name the HDR
-    envmap."""
-    _check_rig(scene_name)
+    """Per-scene BSDF, emitter, area light and auxiliary mesh: a dict with
+    keys ``bsdf``, ``emitter``, ``area_emitter``, ``mesh``.
+
+    ``torus-shadow`` and ``mirror-opt`` are lit by a vMF sun and carry a
+    diffuse floor under the shape or a mirror rect beside it;
+    ``plane_area`` and ``plane_red_object`` an overhead area panel over a
+    dim ambient (a red diffuse albedo for the latter); a ``-hdr`` name the
+    HDR envmap; any other the gradient sky.  A name holding
+    ``principled``, or more than two optimized parameters, gives a
+    :class:`PrincipledBSDF`."""
     device = resolve_device(device)
-    if "principled" in scene_name or len(param_keys) > 2:
+    if "principled" in scene_name:
         bsdf = PrincipledBSDF.create(device=device)
     else:
         bsdf = DiffuseBSDF.create(albedo=(0.8, 0.8, 0.8), device=device)
-    emitter = studio_hdr_envmap(device) if scene_name.endswith("-hdr") else make_gradient_envmap(device=device)
-    return {"bsdf": bsdf, "emitter": emitter, "area_emitter": None, "mesh": None}
+    area = mesh = None
+    if scene_name in ("torus-shadow", "mirror-opt"):
+        emitter = VMFEmitter.create(mu=(0.2, 0.9, 0.1), scale=(30.0,) * 3, ambient=(0.05,) * 3, kappa=60.0,
+                                    device=device)
+        if scene_name == "torus-shadow":
+            # the reconstruction signal is the torus's shadow on this floor
+            mesh = TriangleMesh.floor(height=0.22, half_extent=4.0, albedo=(0.65, 0.65, 0.65), device=device)
+        else:
+            # a vertical mirror behind the shape as sensor 0 sees it: the
+            # sensor sees the torus directly and reflected
+            mesh = TriangleMesh.rect(corner=(-0.35, -0.6, -0.6), e0=(0.0, 2.2, 0.0), e1=(0.0, 0.0, 2.2),
+                                     albedo=(0.88, 0.88, 0.92), material="mirror", device=device)
+    elif scene_name in ("plane_area", "plane_red_object"):
+        emitter = ConstantEmitter.create((0.05, 0.05, 0.05), device=device)
+        area = AreaEmitter.create(corner=(0.2, 1.25, 0.2), e0=(0.6, 0.0, 0.0), e1=(0.0, 0.0, 0.6),
+                                  radiance=(14.0, 14.0, 14.0), device=device)
+        if scene_name == "plane_red_object":
+            bsdf = DiffuseBSDF.create(albedo=(0.75, 0.25, 0.2), device=device)
+    elif scene_name.endswith("-hdr"):
+        emitter = studio_hdr_envmap(device)
+    else:
+        emitter = make_gradient_envmap(device=device)
+    if len(param_keys) > 2:
+        bsdf = PrincipledBSDF.create(device=device)
+    return {"bsdf": bsdf, "emitter": emitter, "area_emitter": area, "mesh": mesh}
 
 
 def scene_rig(scene_name: str, param_keys=("sdf",), device=None):

@@ -39,6 +39,18 @@ class SurfaceInteraction:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+    def detach(self):
+        return SurfaceInteraction(**{f.name: getattr(self, f.name).detach() for f in dataclasses.fields(self)})
+
+    def where(self, mask, other):
+        """Per-lane select: this interaction where ``mask`` (N,), else
+        ``other``."""
+        return SurfaceInteraction(**{
+            f.name: torch.where(mask.reshape(mask.shape + (1,) * (getattr(self, f.name).ndim - mask.ndim)),
+                                getattr(self, f.name), getattr(other, f.name))
+            for f in dataclasses.fields(self)
+        })
+
     def to_local(self, v):
         return torch.stack([dot(v, self.s), dot(v, self.b), dot(v, self.n)], dim=-1)
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -20,6 +21,8 @@ __all__ = [
     "square_to_cosine_hemisphere",
     "cosine_hemisphere_pdf",
     "square_to_uniform_sphere",
+    "square_to_vmf",
+    "vmf_pdf",
     "mis_weight",
 ]
 
@@ -83,6 +86,31 @@ def square_to_uniform_sphere(u):
     r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     phi = 2.0 * math.pi * u[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def _neg_expm1_2k(kappa: float):
+    """``1 - e^{-2κ}`` as the float32 ``-expm1(-2κ)`` (1 for κ ≳ 9), a host
+    scalar (PyTorch's host expm1: numpy's float32 one is an ulp off XLA's
+    at κ = 2)."""
+    return np.float32(-torch.expm1(torch.tensor(-2.0 * kappa, dtype=torch.float32)).item())
+
+
+def square_to_vmf(u, kappa: float):
+    """[0,1)² → von Mises-Fisher sample around +z, stable for large κ:
+    cos θ = 1 + log1p((u - 1)(1 - e^{-2κ})) / κ."""
+    ck = 1.0 + torch.log1p((u[..., 0] - 1.0) * float(_neg_expm1_2k(kappa))) / kappa
+    ck = torch.clamp(ck, -1.0, 1.0)
+    sk = torch.sqrt(torch.clamp_min(1.0 - ck * ck, 0.0))
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([sk * torch.cos(phi), sk * torch.sin(phi), ck], dim=-1)
+
+
+def vmf_pdf(cos_theta, kappa: float):
+    """vMF density on the sphere in the stable form
+    κ / (2π (1 − e^{-2κ})) · e^{κ(cos θ − 1)}; the normalisation is
+    rounded in float32 on the host, as the JAX package rounds it."""
+    norm = np.float32(kappa) / (np.float32(2.0 * math.pi) * _neg_expm1_2k(kappa))
+    return float(norm) * torch.exp(kappa * (cos_theta - 1.0))
 
 
 def mis_weight(pdf_a, pdf_b):

@@ -4,10 +4,7 @@ Counterpart of the JAX package's ``opt/opt_configs.py``: named configs as
 dicts with ``parent`` inheritance, resolved by :func:`process_config_dicts`,
 instantiated into :class:`SdfConfig` objects, and overridable from the
 command line (``--key=value``).  All of the JAX package's names are
-registered: its 39 named configs and the 32 shifted-camera variants.  The
-rigs of ``torus-shadow-1``, ``mirror-opt-1`` and ``mirror-opt-hq`` are not
-ported: their names resolve, and ``optimize_shape`` raises where it builds
-the rig.
+registered: its 39 named configs and the 32 shifted-camera variants.
 """
 
 from __future__ import annotations

@@ -263,7 +263,8 @@ def optimize_shape(
     bsdf, emitter = rig["bsdf"], rig["emitter"]
     tgt_sdf = GridSDF.create(target_sdf(name, tres, scene_dir, device=device))
     cams_full = _make_cameras(opt_cfg, opt_cfg.resx, opt_cfg.resy, device)
-    target_scene = Scene(sdf=tgt_sdf, bsdf=bsdf, emitter=emitter, cameras=cams_full)
+    extras = {"mesh": rig["mesh"], "area_emitter": rig["area_emitter"]}
+    target_scene = Scene(sdf=tgt_sdf, bsdf=bsdf, emitter=emitter, cameras=cams_full, **extras)
     integrator = method_cfg.integrator
     ref_cfg = RenderConfig(
         integrator=integrator if integrator != "sdf_prb_reparam" else "sdf_direct_reparam",
@@ -309,7 +310,7 @@ def optimize_shape(
                     params[s.key] = s.validate(params[s.key], -1)
                     ema[s.key] = params[s.key]
             base = Scene(sdf=GridSDF.create(torch.zeros_like(params["sdf"])), bsdf=bsdf,
-                         emitter=emitter, cameras=cams)
+                         emitter=emitter, cameras=cams, **extras)
 
             view_indices = opt_cfg.sensor_indices(i)
             batch = len(view_indices)
@@ -352,5 +353,6 @@ def optimize_shape(
             _write_params(output_dir, ema, "final")
             dump_metadata(method_cfg, opt_cfg, {"total_time": total_time, "loss_values": loss_values},
                           os.path.join(output_dir, "metadata.json"))
-    final_scene = Scene(sdf=GridSDF.create(params["sdf"]), bsdf=bsdf, emitter=emitter, cameras=cams_full)
+    final_scene = Scene(sdf=GridSDF.create(params["sdf"]), bsdf=bsdf, emitter=emitter, cameras=cams_full,
+                        **extras)
     return OptimizationResult(params, ema, loss_values, total_time, final_scene, iter_seconds)

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Profile one view of one training step of the PyTorch/CUDA port on the card.
 
-    python3 scripts/torch_profile_step.py [--res 64] [--out report.json]
+    python3 scripts/torch_profile_step.py [--scene bunny] [--optconfig no-tex-12] [--res 64] [--out report.json]
+    python3 scripts/torch_profile_step.py --scene torus-shadow --optconfig torus-shadow-1 --res 128
 
-Builds the ``no-tex-12`` / ``warp`` training step of ``optimize_shape`` at its
-published widths (128² film, 256 primal + 64 gradient spp) on a ``--res``³
-sphere grid against the procedural ``bunny`` references, runs the loss and
-gradient of ONE view under ``torch.profiler``, and prints the wall time of
-the view, its device idle share, the number of CUDA kernel launches (and of
-the hand-written kernels' wrapper calls) and the kernels that take most of
-the device time.  Needs a CUDA card; fails without one.
+Builds the ``--optconfig`` / ``warp`` training step of ``optimize_shape`` at
+the config's published widths (its final film: 128² for ``no-tex-12``, 256²
+for ``torus-shadow-1``; 256 primal + 64 gradient spp) on a ``--res``³ sphere
+grid against the procedural references of ``--scene`` under its rig (the
+floor mesh and vMF sun of ``torus-shadow``), runs the loss and gradient of
+ONE view under ``torch.profiler``, and prints the wall time of the view, its
+device idle share, the number of CUDA kernel launches (and of the
+hand-written kernels' wrapper calls), the device time of those kernels and
+the kernels that take most of the device time; then the same for the view's
+primal render alone, whose difference to the view is the grad half.  Needs a
+CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", default="bunny")
+    ap.add_argument("--optconfig", default="no-tex-12")
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
     args = ap.parse_args()
@@ -33,7 +40,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render_chunked
     from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
     from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
     from differentiable_sdf_rendering_tpu_torch.ops.grid import grid_eval_grad_detached
@@ -47,51 +54,68 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     device = torch.device("cuda")
-    opt_cfg, _ = get_opt_config("no-tex-12")
-    rig = scene_rig_full("bunny", device=device)
-    cams = shape_opt._make_cameras(opt_cfg, opt_cfg.resx, opt_cfg.resy, device)
-    target = Scene(sdf=GridSDF.create(target_sdf("bunny", 128, device=device)), bsdf=rig["bsdf"],
-                   emitter=rig["emitter"], cameras=cams)
+    opt_cfg, _ = get_opt_config(args.optconfig)
+    film = (opt_cfg.resx, opt_cfg.resy)
+    rig = scene_rig_full(args.scene, device=device)
+    extras = {"mesh": rig["mesh"], "area_emitter": rig["area_emitter"]}
+    cams = shape_opt._make_cameras(opt_cfg, *film, device)
+    target = Scene(sdf=GridSDF.create(target_sdf(args.scene, 128, device=device)), bsdf=rig["bsdf"],
+                   emitter=rig["emitter"], cameras=cams, **extras)
     cfg_grad = RenderConfig(spp=64)
     cfg_primal = RenderConfig(spp=256)
-    one_view = get_opt_config("no-tex-12")[0]
+    one_view = get_opt_config(args.optconfig)[0]
     one_view.n_sensors = 1
-    refs = shape_opt.render_reference_images(target, one_view, 64, RenderConfig())[(128, 128)]
+    refs = shape_opt.render_reference_images(target, one_view, 64, RenderConfig())[film]
     params = {"sdf": create_sphere_sdf(args.res, device=device)}
     base = Scene(sdf=GridSDF.create(torch.zeros_like(params["sdf"])), bsdf=rig["bsdf"],
-                 emitter=rig["emitter"], cameras=cams)
+                 emitter=rig["emitter"], cameras=cams, **extras)
+    scene_det = base.replace(sdf=GridSDF.create(params["sdf"]))
 
     def step():
         return shape_opt._view_batch_loss_grads(
-            params, base, [0], [0], [13], refs, loss_name="multiscale_l1",
+            params, base, [0], [0], [13], refs, loss_name=opt_cfg.loss,
             cfg_primal=cfg_primal, cfg_grad=cfg_grad, batch=1,
         )
 
-    step()  # warm-up
-    torch.cuda.synchronize()
-    wrappers = (sphere_trace, grid_eval_grad_detached, redistance)
-    before = [w.kernel_launches for w in wrappers]
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    wrapper_calls = {w.__name__: w.kernel_launches - b for w, b in zip(wrappers, before)}
+    def primal():
+        return render_chunked(scene_det, seed=0, cfg=cfg_primal, mode="primal", camera=cams.view(0), device=device)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
+    wrappers = (sphere_trace, grid_eval_grad_detached, redistance)
+
+    def measure(fn):
+        """Wall seconds of one call (after a warm-up call), the wrappers'
+        kernel calls in it, and its CUDA kernels under the profiler."""
+        fn()  # warm-up
         torch.cuda.synchronize()
-    # kernel rows only: an operator row repeats the time of the kernels it launched
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    device_total = sum(e.self_device_time_total for e in rows)
-    top = [
-        {"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
-        for e in rows[:25]
-    ]
+        before = [w.kernel_launches for w in wrappers]
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wrapper_calls = {w.__name__: w.kernel_launches - b for w, b in zip(wrappers, before)}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # kernel rows only: an operator row repeats the time of the kernels it launched
+        rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        device_total = sum(e.self_device_time_total for e in rows)
+        return {
+            "wall_s": wall, "device_busy_s": device_total / 1e6, "device_idle_share": 1.0 - device_total / 1e6 / wall,
+            "cuda_kernel_launches": sum(e.count for e in rows), "wrapper_calls": wrapper_calls,
+            "port_kernels_device_ms": {
+                name: sum(e.self_device_time_total for e in rows if name in e.key) / 1e3
+                for name in ("sphere_trace_kernel", "grid_eval_grad_kernel", "redistance_kernel")},
+        }, [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3, "calls": e.count} for e in rows[:25]]
+
+    view, top = measure(step)
+    primal_only, _ = measure(primal)
     report = {
-        "card": torch.cuda.get_device_name(0), "grid_res": args.res, "view_wall_s": wall,
-        "device_busy_s": device_total / 1e6, "device_idle_share": 1.0 - device_total / 1e6 / wall,
-        "cuda_kernel_launches": sum(e.count for e in rows), "wrapper_calls": wrapper_calls,
+        "card": torch.cuda.get_device_name(0), "scene": args.scene, "optconfig": args.optconfig,
+        "film": list(film), "grid_res": args.res, "view_wall_s": view["wall_s"],
+        "device_busy_s": view["device_busy_s"], "device_idle_share": view["device_idle_share"],
+        "cuda_kernel_launches": view["cuda_kernel_launches"], "wrapper_calls": view["wrapper_calls"],
+        "port_kernels_device_ms": view["port_kernels_device_ms"], "primal_render": primal_only,
         "top_kernels": top,
     }
     if args.out:

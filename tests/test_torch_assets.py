@@ -187,12 +187,14 @@ def test_rigs_match_jax():
     for field in ("base_color", "roughness"):
         np.testing.assert_array_equal(to_np(getattr(p, field)), np.asarray(getattr(pj, field)))
     assert p.specular == pj.specular
-    # the mesh, area-light and vMF rigs are refused, their targets too
-    for name in ("torus-shadow", "mirror-opt", "plane_area", "plane_red_object"):
-        with pytest.raises(NotImplementedError):
-            tzoo.scene_rig_full(name, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tzoo.target_sdf(name + "-hdr", 8, device="cpu")
+    # the mesh, area-light and vMF rigs (held field by field in
+    # test_torch_mesh.py): the BSDF rule comes after a rig's own albedo, and a
+    # '-hdr' name keeps the geometry
+    keys3 = ("sdf", "albedo", "roughness")
+    for keys, kind in ((("sdf",), DiffuseBSDF), (keys3, PrincipledBSDF)):
+        assert type(tzoo.scene_rig_full("plane_red_object", keys, device="cpu")["bsdf"]) is kind
+        assert type(jzoo.scene_rig_full("plane_red_object", keys)["bsdf"]).__name__ == kind.__name__
+    assert torch.equal(tzoo.target_sdf("torus-shadow-hdr", 8, device="cpu"), tzoo.target_sdf("torus-shadow", 8, device="cpu"))
 
 
 def _golden(name, target):

@@ -257,7 +257,7 @@ def test_convert_round_trip(scenes):
 
 def test_unported_paths_raise(scenes):
     _, st = scenes
-    for bad in (dict(integrator="sdf_prb_reparam"), dict(warp_kind="conv"), dict(use_mis=True), dict(antithetic_sampling=True)):
+    for bad in (dict(integrator="sdf_prb_reparam"), dict(warp_kind="conv")):
         with pytest.raises(NotImplementedError):
             tinteg.render(st, 0, cfg=tinteg.RenderConfig(spp=1, **bad), device="cpu")
     with pytest.raises(ValueError):

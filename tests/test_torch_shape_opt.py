@@ -88,14 +88,8 @@ def test_configs_equal_jax():
 def test_unported_options_raise():
     method = tconfigs.get_config("warp")
     cfg = topt_configs.SdfConfig(upsample_iter=(), **TINY)
-    with pytest.raises(NotImplementedError):  # a named config whose rig has a mesh: resolves, raises at the rig
-        optimize_shape(SCENE, topt_configs.get_opt_config("torus-shadow-1")[0], method, device="cpu")
     with pytest.raises(NotImplementedError):
         optimize_shape(SCENE, cfg, tconfigs.get_config("fd"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        optimize_shape("mirror-opt", topt_configs.SdfConfig(**{**TINY, "scene_name": None}), method, device="cpu")
-    with pytest.raises(NotImplementedError):  # the area-light rig
-        optimize_shape("plane_area", topt_configs.SdfConfig(**{**TINY, "scene_name": None}), method, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no card and no device="cpu": raises, no fallback
             optimize_shape(SCENE, cfg, method, n_iter=1)
