@@ -35,7 +35,9 @@ line; any failure raises and the script exits non-zero:
    rays toward the area light with their finite ``maxt`` (hit bits over
    the active lanes); and K2 on the 128³ ``torus-shadow`` grid: the floor
    and torus hits of the 256² camera chunk in lane order, and resampled in
-   random and in Morton order.
+   random and in Morton order; then K1 on PRB's ray sets (the bounce rays of
+   depths 1 and 2 and the NEE shadow rays of depth 1 of its detached path
+   trace on a ``bunny`` view at 64³, 128², 64 spp) and K2 on their points.
    ``--kernels-only`` stops after the grid cases (no sphere or hybrid case,
    no later phase but the launch count of redistancing).
 4. ``reference`` — a small primal render on the card against the same
@@ -77,11 +79,18 @@ line; any failure raises and the script exits non-zero:
 11. ``plane_area`` — NEE-only and MIS primal renders (128², 256 spp) and a
    MIS grad-mode render with its backward pass on the 128³ target, then 2
    iterations of ``optimize_shape("plane_area", no-tex-1, warp)``.
-12. ``launch_count`` — the CUDA launches of one redistancing call at every
+12. ``prb`` — path-replay backpropagation: ``optimize_shape("bunny",
+   no-tex-12, warpprb)`` at the published widths (depth 4) for 2 iterations
+   at 16³ with checkpoints, ``optimize_torch.main`` with ``--configs
+   warpprbprimary`` for 1, ``torus-shadow-1`` (8³ → 16³) and
+   ``mirror-opt-1`` with ``warpprb``, and PRB's oracle (depth 2 against the
+   direct integrator with MIS, depth 4 against depth 2) on a 64³ ``bunny``
+   view; K1, K2 and redistancing must launch in each run.
+13. ``launch_count`` — the CUDA launches of one redistancing call at every
    size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
    after the timed phases; and the launches and device time of one view of
    the textured step with and without its texture volumes bound.
-13. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+14. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -453,10 +462,10 @@ def phase_kernels(device):
     return max_err, by_res
 
 
-def camera_chunk_rays(cam, spp, device):
+def camera_chunk_rays(cam, spp, device, n_uni=6):
     """Camera rays of the first lane chunk of a primal render of ``cam`` at
     ``spp`` samples a pixel, as ``render_lane_block`` makes them, and the
-    uniforms of those lanes."""
+    ``n_uni`` uniforms of those lanes."""
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, lane_chunks
@@ -468,7 +477,7 @@ def camera_chunk_rays(cam, spp, device):
     pix = torch.div(lane, spp, rounding_mode="floor")
     py = torch.div(pix, pw, rounding_mode="floor").to(torch.float32) - BORDER
     px = (pix % pw).to(torch.float32) - BORDER
-    uni = lane_uniforms(0, lane, 6)
+    uni = lane_uniforms(0, lane, n_uni)
     o, d = cam.sample_ray(torch.stack([px + uni[:, 0], py + uni[:, 1]], dim=-1))
     return o, d, uni
 
@@ -545,14 +554,25 @@ def cuda_launches_per_call(fn):
 
 
 def trace_bytes(sdf, o, d, lanes_kw):
-    """Bytes a trace must move: each operand read once as stored (a stride-0
-    broadcast counts one row), its_t written once."""
-    def stored(x):
-        return x.element_size() * (x[0].numel() if x.stride(0) == 0 else x.numel())
+    """Bytes a trace must move: the grid, and the ``active`` mask of every
+    lane, read once; the other per-lane operands (o, d, ``maxt``,
+    ``refine_active``) read once for the active lanes only, since an inactive
+    lane's ray is never traced; its_t written once for every lane.  A
+    stride-0 broadcast counts one row."""
+    import torch
+
+    active = lanes_kw.get("active")
+    per_lane = isinstance(active, torch.Tensor) and active.dim() > 0 and active.stride(0) != 0
+    n_active = int(active.sum()) if per_lane else d.shape[0]
+
+    def stored(x, rows):
+        return x.element_size() * x[0].numel() * (1 if x.stride(0) == 0 else rows)
 
     params = [sdf.data, sdf.p] if hasattr(sdf, "data") else [sdf.p, sdf.r.reshape(1)]
-    operands = [o, d, *(v for v in lanes_kw.values() if hasattr(v, "stride"))]
-    return sum(stored(x) for x in params + operands) + d.shape[0] * TRACE_OUT_BYTES_PER_RAY
+    rays = [o, d, *(v for k, v in lanes_kw.items() if k != "active" and isinstance(v, torch.Tensor))]
+    mask = [active] if per_lane else []
+    return (sum(p.numel() * p.element_size() for p in params) + sum(stored(x, n_active) for x in rays)
+            + sum(stored(x, d.shape[0]) for x in mask) + d.shape[0] * TRACE_OUT_BYTES_PER_RAY)
 
 
 def trace_case(sdf, o, d, params, lanes_kw):
@@ -826,6 +846,107 @@ def hybrid_ray_sets(device):
 # cannot pass.
 HYBRID_HIT_BITS_LIMIT = 1e-5
 HYBRID_MIN_HIT_SHARE = 100 * HYBRID_HIT_BITS_LIMIT
+
+
+def prb_bunny_view(device):
+    """The scene of PRB's ray sets and of its oracle: the ``bunny`` rig at
+    its 64³ target under the 12 cameras of ``no-tex-12`` at 128² (view 0 is
+    rendered)."""
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
+
+    rig = scene_rig_full("bunny", device=device)
+    return Scene(sdf=GridSDF.create(target_sdf("bunny", 64, device=device)), bsdf=rig["bsdf"],
+                 emitter=rig["emitter"], cameras=regular_cameras(12, resx=128, resy=128, device=device))
+
+
+def prb_cup_view(device):
+    """The bowl of the tier-1 PRB parity test (tests/test_torch_prb.py::
+    _cup_sdf) at the oracle's 64³ grid and 128² film: a hollow sphere of
+    radii 0.38 and 0.26 cut open by a plane facing view 0's camera, under
+    the default BSDF and constant emitter.  Paths bounce inside it, so the
+    vertices past the second add light (the bunny is all but convex)."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
+    from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
+
+    res = 64
+    c = (torch.arange(res, dtype=torch.float64, device=device) + 0.5) / res - 0.5
+    z, y, x = torch.meshgrid(c, c, c, indexing="ij")
+    n = torch.tensor([1.0, 0.3, 0.4], dtype=torch.float64, device=device)
+    n = n / torch.linalg.norm(n)
+    r = torch.sqrt(x * x + y * y + z * z)
+    cut = x * n[0] + y * n[1] + z * n[2] - 0.12
+    data = torch.maximum(torch.maximum(r - 0.38, 0.26 - r), cut).float()
+    return Scene.create(data, cameras=regular_cameras(1, resx=128, resy=128, device=device), device=device)
+
+
+def prb_ray_sets(device):
+    """K1's ray sets of PRB's detached path trace (``models/prb.py::
+    _trace_primal``) on view 0 of :func:`prb_bunny_view`, 64 spp, depth 4
+    (one lane chunk), as ``(name, sdf, o, d, params, lanes_kw, points)``:
+    the cosine-sampled bounce rays of depths 1 and 2 (leaving the first and
+    second hits; incoherent, active where the path goes on) and the NEE
+    shadow rays toward the sky from the first hits, with their ``maxt``.
+    ``points`` are those K2 is held on: the points the path hands it for the
+    bounce sets' hits (lane order, misses at the ray origin), and the shadow
+    rays' hit points."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models import integrator as integ
+    from differentiable_sdf_rendering_tpu_torch.models import prb
+    from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace
+
+    cfg = integ.RenderConfig(integrator="sdf_prb_reparam", spp=64, max_depth=4)
+    scene = prb_bunny_view(device)
+    o, d, uni = camera_chunk_rays(scene.cameras.view(0), cfg.spp, device, integ.n_uniforms(cfg))
+    recs, _ = prb._trace_primal(scene, o, d, uni, cfg)
+    for k in (1, 2):
+        r = recs[k]
+        yield f"prb_bounce_{k}_64", scene.sdf, r["ray_o"], r["ray_d"], cfg.trace, {"active": r["active"]}, r["si"].p
+    r = recs[0]
+    em_o = r["si"].p + r["ds_d"] * cfg.shadow_eps
+    lanes_kw = {"active": r["active_em"], "maxt": r["shadow_maxt"]}
+    its_t = sphere_trace(scene.sdf, em_o, r["ds_d"], cfg.trace, **lanes_kw)
+    hit = torch.isfinite(its_t)
+    yield "prb_shadow_1_64", scene.sdf, em_o, r["ds_d"], cfg.trace, lanes_kw, em_o[hit] + its_t[hit, None] * r["ds_d"][hit]
+
+
+# K1 on PRB's ray sets: a depth-2 bounce set of one 128² view holds a few
+# thousand active rays (the bunny covers a sixteenth of the film, and 2-3 %
+# of the first bounce's rays hit it again), fewer than the hybrid sets'.
+PRB_MIN_ACTIVE_RAYS = 1_000
+
+
+def phase_prb_trace_kernels(device):
+    """K1 against its plain version on PRB's ray sets (:func:`prb_ray_sets`)
+    at the hybrid sets' limits (hit bits over the active lanes, ``its_t``
+    within 1e-5 where both hit, a plain hit share of at least
+    ``HYBRID_MIN_HIT_SHARE``), and K2 against its plain version on their
+    points within 1e-5 of the output's scale (the 64³ limit).  The shadow
+    rays' hit points lie on the surface, so every value there is within
+    5e-5 of 0 and float32 rounding alone (1.6e-9, either version against
+    float64 on an H100, 700 W) is 3e-5 of that scale: that set is held to
+    the float64 witness of :func:`grid_eval_case`."""
+    import torch
+
+    trace, grid_eval = {}, {}
+    with torch.no_grad():
+        for name, sdf, o, d, params, lanes_kw, pts in prb_ray_sets(device):
+            trace[name] = trace_case(sdf, o, d, params, lanes_kw)
+            grid_eval[name] = grid_eval_case(sdf.data, sdf.p, pts.contiguous(),
+                                             float64_witness=name.startswith("prb_shadow"))
+    emit({"phase": "kernels", "sphere_trace_prb": trace, "grid_eval_grad_prb": grid_eval})
+    for name, case in trace.items():
+        if not (case["hit_bits_differ_share_active"] <= HYBRID_HIT_BITS_LIMIT
+                and case["max_abs_dits_t_both_hit"] <= 1e-5):
+            raise AssertionError(f"sphere-trace kernel disagrees with its plain version ({name}): {case}")
+        if case["active_rays"] < PRB_MIN_ACTIVE_RAYS or not case["plain_hit_share_active"] >= HYBRID_MIN_HIT_SHARE:
+            raise AssertionError(f"the {name} ray set is degenerate: {case}")
+    return trace, grid_eval
 
 
 def phase_hybrid_trace_kernels(device):
@@ -1433,6 +1554,144 @@ def phase_plane_area(device):
     return render_counts, counts
 
 
+
+# depth cuts of the prb phase: iterations (512 in a full run; the grids stay
+# at their first sizes, or double once, as early in a full run)
+PRB_ITERS = 2
+PRB_ORACLE_SEEDS = 3
+
+
+def require_prb_launched(where, counts):
+    """Fail unless K1, K2 and redistancing were launched in ``counts``."""
+    require_launched(f"PRB {where}", counts)
+    if counts["redistance"] == 0:
+        raise AssertionError(f"redistancing was not launched on the PRB {where} path: {counts}")
+
+
+# The cup's depth-4 gain over depth 2 (m4 / m2 - 1) must lie within
+# PRB_CUP_GAIN_BAND: the port measured 0.0258 on the host (the plain
+# versions, this view at 8 spp, 3 seeds, each seed's gain within 0.001 of
+# it), where depth 3 alone gains 0.0164 and a replay that adds nothing past
+# the second vertex 0; the band is that reading ± 20 %.
+PRB_CUP_GAIN_BAND = (0.0206, 0.0310)
+
+
+def prb_oracle(device):
+    """PRB's own oracle at 128², 64 spp, ``PRB_ORACLE_SEEDS`` seeds each, on
+    view 0 of :func:`prb_bunny_view` and of :func:`prb_cup_view`: at depth 2
+    PRB estimates direct illumination with MIS, so the means of the two
+    agree within 2.5 % (tests/test_prb.py; the seeds differ, and so do the
+    random streams); depth 4 adds interreflection, so on the bunny its mean
+    is no lower than depth 2's, and in the cup, where the later vertices
+    carry light, it gains ``PRB_CUP_GAIN_BAND`` over depth 2."""
+    import statistics
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render
+
+    def means(scene, seeds, **fields):
+        return [float(render(scene, 0, seed=s, cfg=RenderConfig(spp=64, **fields), device=device)[..., :3].mean())
+                for s in seeds]
+
+    def renders():
+        even, odd = range(0, 2 * PRB_ORACLE_SEEDS, 2), range(1, 2 * PRB_ORACLE_SEEDS, 2)
+        return {view: {"prb_depth2": means(scene, even, integrator="sdf_prb_reparam", max_depth=2),
+                       "direct_mis": means(scene, odd, use_mis=True),
+                       "prb_depth4": means(scene, even, integrator="sdf_prb_reparam", max_depth=4)}
+                for view, scene in (("bunny", prb_bunny_view(device)), ("cup", prb_cup_view(device)))}
+
+    out, counts, seconds, _ = counted(renders)
+    line = {"means": out, "seconds": seconds, "kernel_launches": counts, "cup_gain_band": PRB_CUP_GAIN_BAND}
+    ok = True
+    for view, v in out.items():
+        m = {k: statistics.fmean(x) for k, x in v.items()}
+        rel = abs(m["prb_depth2"] - m["direct_mis"]) / m["direct_mis"]
+        gain = m["prb_depth4"] / m["prb_depth2"] - 1.0
+        line[f"rel_gap_depth2_vs_direct_mis_{view}"], line[f"depth4_gain_{view}"] = rel, gain
+        more = (m["prb_depth4"] >= m["prb_depth2"] - 1e-4 if view == "bunny"
+                else PRB_CUP_GAIN_BAND[0] <= gain <= PRB_CUP_GAIN_BAND[1])
+        ok = ok and rel < 0.025 and more
+    if not ok:
+        raise AssertionError(f"PRB oracle: {line}")
+    require_launched("PRB oracle", counts)
+    return line
+
+
+def phase_prb(device):
+    """Path-replay backpropagation (``sdf_prb_reparam``, the methods
+    ``warpprb`` and ``warpprbprimary``) through the entry points, cut in
+    depth only:
+
+    - ``optimize_shape("bunny", no-tex-12, warpprb)`` at the published
+      widths (12 views, batches of 6, 128² film, 64 + 256 spp, depth 4;
+      references from the direct integrator), ``PRB_ITERS`` iterations at
+      the 16³ grid, checkpoints read back;
+    - ``optimize_torch.main`` with ``--configs warpprbprimary``, 1 iteration;
+    - ``torus-shadow-1`` with ``warpprb`` (diffuse-mesh vertices, vMF NEE at
+      every bounce): ``PRB_ITERS`` iterations at 128², grid 8³ → 16³;
+    - ``mirror-opt-1`` with ``warpprb`` (mirror, delta, vertices): 1
+      iteration at 128²;
+    - :func:`prb_oracle`.
+
+    Each run: seconds per iteration, peak memory, the launches of K1, K2 and
+    redistancing (all three required), finite losses."""
+    import math
+
+    import optimize_torch
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    method = get_config("warpprb")
+    assert method.integrator == "sdf_prb_reparam" and (method.spp, method.primal_spp_mult) == (64, 4)
+    runs = {}
+
+    def record(name, result, counts, seconds, peak, shapes):
+        require_prb_launched(name, counts)
+        runs[name] = {"iter_seconds": result.iter_seconds, "loss": result.loss_values,
+                      "grid_res": [s["sdf"][0] for s in shapes], "seconds_total": seconds,
+                      "peak_memory_bytes": peak, "kernel_launches": counts}
+
+    opt_cfg, _ = get_opt_config("no-tex-12")
+    assert (opt_cfg.n_sensors, opt_cfg.batch_size, opt_cfg.resx, opt_cfg.resy) == (12, 6, 128, 128)
+    assert opt_cfg.upsample_iter[0] >= PRB_ITERS  # the grid stays 16³
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prb_") as out_dir:
+        result, *rest = run_optimize("bunny", opt_cfg, method, PRB_ITERS, output_dir=out_dir, ref_spp=REF_SPP,
+                                     target_res=128, device=device)
+        files = check_checkpoints(out_dir, opt_cfg.variables(), result, PRB_ITERS, device)
+    record("bunny_no-tex-12", result, *rest)
+    runs["bunny_no-tex-12"]["checkpoints"] = files
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prb_cli_") as out_dir:
+        _, counts, seconds, peak = counted(lambda: optimize_torch.main(
+            ["bunny", "--optconfig", "no-tex-12", "--configs", "warpprbprimary", "--n_iter", "1",
+             "--refspp", str(REF_SPP), "--outputdir", out_dir]))
+        with open(os.path.join(out_dir, "bunny", "no-tex-12", "warpprbprimary", "metadata.json")) as f:
+            losses = json.load(f)["loss_values"]
+    if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"optimize_torch.main --configs warpprbprimary: losses {losses}")
+    require_prb_launched("CLI", counts)
+    runs["cli_warpprbprimary"] = {"loss": losses, "seconds_total": seconds, "peak_memory_bytes": peak,
+                                  "kernel_launches": counts}
+
+    opt_cfg, _ = get_opt_config(SHADOW_CONFIG)
+    # depth cut: the grid doubles once, after iteration 1, and stops at 16³
+    opt_cfg.sdf_res, opt_cfg.upsample_iter = 16, (1,)
+    assert opt_cfg.res_at(PRB_ITERS - 1) == (128, 128)
+    result, *rest = run_optimize(SHADOW_SCENE, opt_cfg, method, PRB_ITERS, ref_spp=REF_SPP, device=device)
+    if result.scene.mesh is None or [s["sdf"][0] for s in rest[-1]] != [8, 16]:
+        raise AssertionError(f"torus-shadow PRB run: grids {rest[-1]}, mesh {result.scene.mesh}")
+    record("torus-shadow-1", result, *rest)
+
+    opt_cfg, _ = get_opt_config("mirror-opt-1")
+    result, *rest = run_optimize("mirror-opt", opt_cfg, method, 1, ref_spp=REF_SPP, device=device)
+    if result.scene.mesh is None or result.scene.mesh.material != "mirror":
+        raise AssertionError("the final mirror-opt scene lost its mirror")
+    record("mirror-opt-1", result, *rest)
+
+    oracle = prb_oracle(device)
+    emit({"phase": "prb", "method": method.name, "iterations": PRB_ITERS, "ref_spp": REF_SPP, "max_depth": 4,
+          "runs": runs, "oracle": oracle})
+    return [r["kernel_launches"] for r in runs.values()] + [oracle["kernel_launches"]]
+
 GOLDEN_NAMES = ("trefoil", "blob", "cinquefoil")
 
 
@@ -1487,11 +1746,8 @@ def texture_cost_per_view(device, result):
     albedo and roughness volumes bound and with the same step on the SDF
     alone (the principled BSDF's constants): what the attached texture
     lookups add to a view."""
-    import dataclasses
-
     import torch
 
-    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
     from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
     from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
     from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
@@ -1504,8 +1760,7 @@ def texture_cost_per_view(device, result):
     cams = shape_opt._make_cameras(opt_cfg, opt_cfg.resx, opt_cfg.resy, device)
     base = Scene(sdf=GridSDF.create(torch.zeros_like(result.params["sdf"])), bsdf=scene.bsdf, emitter=scene.emitter,
                  cameras=cams)
-    cfg_grad = RenderConfig(spp=method.spp, warp=method.warp_config(), trace=method.trace_params())
-    cfg_primal = dataclasses.replace(cfg_grad, spp=method.spp * method.primal_spp_mult)
+    cfg_primal, cfg_grad = shape_opt.render_configs(method)
     ref = torch.zeros(1, opt_cfg.resy, opt_cfg.resx, 3, device=device)
     out = {}
     for name, params in (("with_textures", result.params), ("sdf_only", {"sdf": result.params["sdf"]})):
@@ -1585,6 +1840,7 @@ def main(argv):
         raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
     sphere = sphere_case(device)
     hybrid, hybrid_grid_eval = phase_hybrid_trace_kernels(device)
+    prb_trace, prb_grid_eval = phase_prb_trace_kernels(device)
     phase_reference(device)
     train_counts = phase_train(device)
     optimize_counts, turntable_counts = phase_cli(device)
@@ -1593,6 +1849,7 @@ def main(argv):
     shadow_counts = phase_shadow(device)
     mirror_counts = phase_mirror(device)
     plane_area_counts = phase_plane_area(device)
+    prb_counts = phase_prb(device)
     k1_launches, redistance_launches = phase_launch_count(device, textured=textured)
 
     def launches_in(counts, key):
@@ -1601,16 +1858,18 @@ def main(argv):
     def slice_launches(key):
         """The launches of the hybrid phases: the shadow run (+ its turntable
         frame and CLI iteration), the mirror run, the plane_area renders and
-        run."""
+        run; and of the prb phase (its four runs and its oracle)."""
         return {"shadow_launches": launches_in(shadow_counts, key), "mirror_launches": mirror_counts[key],
-                "plane_area_launches": launches_in(plane_area_counts, key)}
+                "plane_area_launches": launches_in(plane_area_counts, key),
+                "prb_launches": launches_in(prb_counts, key)}
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
     # into the kernel during the train phase, ``cli_launches`` during the two
     # CLI runs, ``textured_launches`` during the textured run and its
     # turntable frame, ``shadow_launches``, ``mirror_launches`` and
-    # ``plane_area_launches`` during the hybrid phases; ``cuda_launches`` the
+    # ``plane_area_launches`` during the hybrid phases, ``prb_launches``
+    # during the prb phase; ``cuda_launches`` the
     # CUDA launches of the redistancing calls (counted by the kernel's C entry).  No single PyTorch call computes any
     # of these functions, so ``library_ms`` is null.
     main_res = by_res[64]
@@ -1640,16 +1899,18 @@ def main(argv):
             "cli_launches": optimize_counts["sphere_trace"] + turntable_counts["sphere_trace"],
             "textured_launches": textured_counts["sphere_trace"] + textured_turntable_counts["sphere_trace"],
             **slice_launches("sphere_trace"),
-            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*trace.values(), *hybrid.values(), sphere]),
+            "max_abs_err": max(c["max_abs_dits_t_both_hit"]
+                               for c in [*trace.values(), *hybrid.values(), *prb_trace.values(), sphere]),
             "hit_bits_differ_share": max(c["hit_bits_differ_share"]
-                                         for c in [*trace.values(), *hybrid.values(), sphere]),
-            "hybrid_hit_bits_differ_share_active": max(c["hit_bits_differ_share_active"] for c in hybrid.values()),
+                                         for c in [*trace.values(), *hybrid.values(), *prb_trace.values(), sphere]),
+            "hybrid_hit_bits_differ_share_active": max(c["hit_bits_differ_share_active"]
+                                                       for c in [*hybrid.values(), *prb_trace.values()]),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": None, "wrapper_ms": k1["wrapper_ms"],
             "wrapper_cuda_launches": k1_launches,
             "shape": f"{k1['rays']} camera rays of a bunny view (128^2 film, 256 spp), 64^3 fp32 grid",
             "sets": {name: {key: c[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
-                     for name, c in {**trace, **hybrid, "analytic_sphere": sphere}.items()},
+                     for name, c in {**trace, **hybrid, **prb_trace, "analytic_sphere": sphere}.items()},
         },
         {
             "name": "grid_eval_grad", "route": "cuda",
@@ -1661,12 +1922,13 @@ def main(argv):
             "cli_launches": optimize_counts["grid_eval_grad"] + turntable_counts["grid_eval_grad"],
             "textured_launches": textured_counts["grid_eval_grad"] + textured_turntable_counts["grid_eval_grad"],
             **slice_launches("grid_eval_grad"),
-            "max_abs_err": max(c["max_abs_diff"] for c in [*grid_eval.values(), *hybrid_grid_eval.values()]),
+            "max_abs_err": max(c["max_abs_diff"]
+                               for c in [*grid_eval.values(), *hybrid_grid_eval.values(), *prb_grid_eval.values()]),
             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": None,
             "shape": f"{k2['points']} points near the surface in random order, 64^3 fp32 grid",
             "sets": {name: {key: c[key] for key in ("points", "grid_res", "ms", "plain_ms", "bound_ms", "bound_by")}
-                     for name, c in {**grid_eval, **hybrid_grid_eval}.items()},
+                     for name, c in {**grid_eval, **hybrid_grid_eval, **prb_grid_eval}.items()},
         },
     ]})
     print(smi, flush=True)

@@ -187,7 +187,10 @@ struct Ray {
     int refine_ok;
 };
 
+// An inactive ray is not traced, so nothing else of it is read.
 __device__ __forceinline__ void load_ray(const Rays& rays, long long i, RayInput& in) {
+    in.active = rays.active ? rays.active[i * rays.active_stride] != 0 : rays.active_value != 0;
+    if (!in.active) return;
     const float* o = rays.o + i * rays.o_stride;
     const float* d = rays.d + i * rays.d_stride;
     in.ox = o[0];
@@ -197,7 +200,6 @@ __device__ __forceinline__ void load_ray(const Rays& rays, long long i, RayInput
     in.dy = d[1];
     in.dz = d[2];
     in.maxt = rays.maxt ? rays.maxt[i * rays.maxt_stride] : rays.maxt_value;
-    in.active = rays.active ? rays.active[i * rays.active_stride] != 0 : rays.active_value != 0;
     in.refine = rays.refine ? rays.refine[i * rays.refine_stride] != 0 : rays.refine_value != 0;
 }
 
@@ -206,6 +208,7 @@ __device__ __forceinline__ void load_ray(const Rays& rays, long long i, RayInput
 // its extent).
 template <class Sdf>
 __device__ bool setup_ray(const Sdf& sdf, const Params& prm, const RayInput& in, Ray& ray) {
+    if (!in.active) return false;
     const float o3[3] = {in.ox, in.oy, in.oz};
     float d3[3] = {in.dx, in.dy, in.dz};
     const float norm = sqrtf(fmaxf((d3[0] * d3[0] + d3[1] * d3[1]) + d3[2] * d3[2], 1e-30f));
@@ -226,7 +229,7 @@ __device__ bool setup_ray(const Sdf& sdf, const Params& prm, const RayInput& in,
         inside = inside && o3[k] >= lo[k] && o3[k] <= hi[k];
     }
     const bool hit = tmax >= mint && tmax > 0.0f && (mint > 0.0f || inside) && mint <= in.maxt;
-    if (!(in.active && hit)) return false;
+    if (!hit) return false;
     ray.ox = o3[0];
     ray.oy = o3[1];
     ray.oz = o3[2];

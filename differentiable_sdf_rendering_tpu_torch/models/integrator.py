@@ -11,11 +11,13 @@ Integrators, by name:
   * ``sdf_silhouette_reparam``     — binary coverage × det
   * ``sdf_simple_shading_reparam`` — n·l debug shading × det
   * ``sdf_direct_reparam``         — direct illumination with detached NEE,
-    reparameterized shadow rays at depth 1, optional MIS BSDF sampling.
+    reparameterized shadow rays at depth 1, optional MIS BSDF sampling;
+  * ``sdf_prb_reparam``            — path-replay backpropagation over
+    ``max_depth`` bounces (``models/prb.py``).
 Scenes may add a triangle mesh (merged with the SDF by nearest t; mirror
 triangles get one specular bounce) and an area emitter at a finite position.
-``warp_kind`` is 'warp' or 'dummy'; the convolution-warp baseline and the
-PRB integrator are not implemented here, and asking for one raises.
+``warp_kind`` is 'warp' or 'dummy'; the convolution-warp baseline is not
+implemented here, and asking for it raises.
 
 The training loop renders primal at high spp, takes dLoss/dimage, and pulls
 it back through a (lower-spp) grad-mode render with autograd.
@@ -83,6 +85,10 @@ class RenderConfig:
 def _check_supported(cfg: RenderConfig):
     if cfg.integrator not in _INTEGRATORS:
         raise NotImplementedError(f"integrator '{cfg.integrator}' is not ported")
+    if cfg.integrator == "sdf_prb_reparam" and cfg.warp_kind == "conv":
+        # the JAX package refuses this pair too: the conv baseline goes with
+        # the direct integrator only
+        raise NotImplementedError("warp_kind='conv' is not supported by sdf_prb_reparam")
     if cfg.warp_kind not in ("warp", "dummy"):
         raise NotImplementedError(f"warp_kind '{cfg.warp_kind}' is not ported")
 
@@ -390,11 +396,25 @@ def _sample_direct(scene, o, d, uni, cfg: RenderConfig, mode):
     return result, valid_ray, det, d1
 
 
+def _sample_prb(scene, o, d, uni, cfg, mode):
+    from .prb import sample_prb
+
+    return sample_prb(scene, o, d, uni, cfg, mode)
+
+
 _INTEGRATORS = {
     "sdf_silhouette_reparam": _sample_silhouette,
     "sdf_simple_shading_reparam": _sample_simple_shading,
     "sdf_direct_reparam": _sample_direct,
+    "sdf_prb_reparam": _sample_prb,
 }
+
+
+def n_uniforms(cfg: RenderConfig) -> int:
+    """Uniforms a lane draws: 6 (pixel jitter, NEE, BSDF), and 8 more a
+    bounce for PRB.  Each column is keyed by its own counter, so the first 6
+    are the same for every integrator."""
+    return 6 + (8 * cfg.max_depth if cfg.integrator == "sdf_prb_reparam" else 0)
 
 
 def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal"):
@@ -414,7 +434,7 @@ def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal
     pix = torch.div(lane, spp, rounding_mode="floor")
     py = torch.div(pix, pw, rounding_mode="floor").to(torch.float32) - b
     px = (pix % pw).to(torch.float32) - b
-    uni = lane_uniforms(seed, lane, 6)
+    uni = lane_uniforms(seed, lane, n_uniforms(cfg))
 
     jx, jy = uni[:, 0], uni[:, 1]
     if cfg.antithetic_sampling:

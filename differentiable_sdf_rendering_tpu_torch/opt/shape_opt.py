@@ -225,6 +225,21 @@ def load_checkpoint(output_dir: str, iteration, specs, device=None):
     return params
 
 
+def render_configs(method_cfg: BaseConfig):
+    """The training step's ``(cfg_primal, cfg_grad)`` render configs of a
+    method: its integrator, warp and trace settings at ``spp`` for the
+    gradient render and ``spp·primal_spp_mult`` for the primal one."""
+    cfg_grad = RenderConfig(
+        integrator=method_cfg.integrator,
+        spp=method_cfg.spp,
+        warp=method_cfg.warp_config(),
+        trace=method_cfg.trace_params(),
+        use_warp=method_cfg.warp_kind != "dummy",
+        warp_kind=method_cfg.warp_kind,
+    )
+    return dataclasses.replace(cfg_grad, spp=method_cfg.spp * method_cfg.primal_spp_mult), cfg_grad
+
+
 def optimize_shape(
     scene_name: str,
     opt_cfg: SdfConfig,
@@ -280,15 +295,7 @@ def optimize_shape(
     loss_values, iter_seconds = [], []
     seed = 0
 
-    cfg_grad = RenderConfig(
-        integrator=integrator,
-        spp=method_cfg.spp,
-        warp=method_cfg.warp_config(),
-        trace=method_cfg.trace_params(),
-        use_warp=method_cfg.warp_kind != "dummy",
-        warp_kind=method_cfg.warp_kind,
-    )
-    cfg_primal = dataclasses.replace(cfg_grad, spp=method_cfg.spp * method_cfg.primal_spp_mult)
+    cfg_primal, cfg_grad = render_configs(method_cfg)
 
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Profile one view of one training step of the PyTorch/CUDA port on the card.
 
-    python3 scripts/torch_profile_step.py [--scene bunny] [--optconfig no-tex-12] [--res 64] [--out report.json]
+    python3 scripts/torch_profile_step.py [--scene bunny] [--optconfig no-tex-12] [--method warp] [--res 64]
+                                          [--out report.json]
     python3 scripts/torch_profile_step.py --scene torus-shadow --optconfig torus-shadow-1 --res 128
+    python3 scripts/torch_profile_step.py --method warpprb
+    python3 scripts/torch_profile_step.py --scene torus-shadow --optconfig torus-shadow-1 --res 128 \
+        --method warpprb --no-profile
 
-Builds the ``--optconfig`` / ``warp`` training step of ``optimize_shape`` at
-the config's published widths (its final film: 128² for ``no-tex-12``, 256²
-for ``torus-shadow-1``; 256 primal + 64 gradient spp) on a ``--res``³ sphere
+Builds the ``--optconfig`` / ``--method`` training step of ``optimize_shape``
+at the config's published widths (its final film: 128² for ``no-tex-12``,
+256² for ``torus-shadow-1``; the method's primal and gradient spp, 256 + 64,
+and its integrator: ``warpprb`` is PRB at depth 4) on a ``--res``³ sphere
 grid against the procedural references of ``--scene`` under its rig (the
-floor mesh and vMF sun of ``torus-shadow``), runs the loss and gradient of
-ONE view under ``torch.profiler``, and prints the wall time of the view, its
-device idle share, the number of CUDA kernel launches (and of the
-hand-written kernels' wrapper calls), the device time of those kernels and
-the kernels that take most of the device time; then the same for the view's
-primal render alone, whose difference to the view is the grad half.  Needs a
-CUDA card; fails without one.
+floor mesh and vMF sun of ``torus-shadow``; rendered with the direct
+integrator, as ``optimize_shape`` renders them), runs the loss and gradient
+of ONE view under ``torch.profiler``, and prints the wall time of the view,
+its peak device memory, its device idle share, the number of CUDA kernel
+launches (and of the hand-written kernels' wrapper calls), the device time
+of those kernels and the kernels that take most of the device time; then the
+same for the view's primal render alone, whose difference to the view is the
+grad half.  Where the gradient wavefront takes several lane chunks, the wall
+time of the pass that renders them without a graph (for the block's
+cotangent) is measured apart.  ``--no-profile`` skips ``torch.profiler``
+(wall times, peak memory and wrapper calls only).  Needs a CUDA card; fails
+without one.
 """
 
 from __future__ import annotations
@@ -32,15 +42,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="bunny")
     ap.add_argument("--optconfig", default="no-tex-12")
+    ap.add_argument("--method", default="warp", help="gradient method config, e.g. warp or warpprb")
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
+    ap.add_argument("--no-profile", action="store_true", help="skip torch.profiler")
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render_chunked
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import (
+        RenderConfig, lane_chunks, render_chunked, render_lane_block,
+    )
     from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
     from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig_full, target_sdf
     from differentiable_sdf_rendering_tpu_torch.ops.grid import grid_eval_grad_detached
@@ -49,6 +63,7 @@ def main():
     from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace
     from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
     from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
     from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
 
     if not torch.cuda.is_available():
@@ -61,8 +76,8 @@ def main():
     cams = shape_opt._make_cameras(opt_cfg, *film, device)
     target = Scene(sdf=GridSDF.create(target_sdf(args.scene, 128, device=device)), bsdf=rig["bsdf"],
                    emitter=rig["emitter"], cameras=cams, **extras)
-    cfg_grad = RenderConfig(spp=64)
-    cfg_primal = RenderConfig(spp=256)
+    method = get_config(args.method)
+    cfg_primal, cfg_grad = shape_opt.render_configs(method)
     one_view = get_opt_config(args.optconfig)[0]
     one_view.n_sensors = 1
     refs = shape_opt.render_reference_images(target, one_view, 64, RenderConfig())[film]
@@ -80,19 +95,31 @@ def main():
     def primal():
         return render_chunked(scene_det, seed=0, cfg=cfg_primal, mode="primal", camera=cams.view(0), device=device)
 
+    chunks = lane_chunks(cams.view(0), cfg_grad, device)
+
+    def grad_first_pass():
+        # the no-graph pass of _view_batch_loss_grads over several chunks
+        with torch.no_grad():
+            return sum(render_lane_block(scene_det, cams.view(0), c, 13, cfg_grad, "grad") for c in chunks)
+
     wrappers = (sphere_trace, grid_eval_grad_detached, redistance)
 
     def measure(fn):
-        """Wall seconds of one call (after a warm-up call), the wrappers'
-        kernel calls in it, and its CUDA kernels under the profiler."""
+        """Wall seconds and peak memory of one call (after a warm-up call),
+        the wrappers' kernel calls in it, and its CUDA kernels under the
+        profiler."""
         fn()  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         before = [w.kernel_launches for w in wrappers]
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         wrapper_calls = {w.__name__: w.kernel_launches - b for w, b in zip(wrappers, before)}
+        if args.no_profile:
+            return {"wall_s": wall, "peak_memory_bytes": peak, "wrapper_calls": wrapper_calls}, []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -101,7 +128,8 @@ def main():
                       key=lambda e: -e.self_device_time_total)
         device_total = sum(e.self_device_time_total for e in rows)
         return {
-            "wall_s": wall, "device_busy_s": device_total / 1e6, "device_idle_share": 1.0 - device_total / 1e6 / wall,
+            "wall_s": wall, "peak_memory_bytes": peak, "device_busy_s": device_total / 1e6,
+            "device_idle_share": 1.0 - device_total / 1e6 / wall,
             "cuda_kernel_launches": sum(e.count for e in rows), "wrapper_calls": wrapper_calls,
             "port_kernels_device_ms": {
                 name: sum(e.self_device_time_total for e in rows if name in e.key) / 1e3
@@ -110,12 +138,13 @@ def main():
 
     view, top = measure(step)
     primal_only, _ = measure(primal)
+    first_pass = measure(grad_first_pass)[0] if len(chunks) > 1 else None
     report = {
         "card": torch.cuda.get_device_name(0), "scene": args.scene, "optconfig": args.optconfig,
-        "film": list(film), "grid_res": args.res, "view_wall_s": view["wall_s"],
-        "device_busy_s": view["device_busy_s"], "device_idle_share": view["device_idle_share"],
-        "cuda_kernel_launches": view["cuda_kernel_launches"], "wrapper_calls": view["wrapper_calls"],
-        "port_kernels_device_ms": view["port_kernels_device_ms"], "primal_render": primal_only,
+        "method": method.name, "integrator": cfg_grad.integrator, "film": list(film), "grid_res": args.res,
+        "view_wall_s": view["wall_s"], "peak_memory_bytes": view["peak_memory_bytes"],
+        **{k: v for k, v in view.items() if k not in ("wall_s", "peak_memory_bytes")},
+        "primal_render": primal_only, "grad_chunks": len(chunks), "grad_first_pass": first_pass,
         "top_kernels": top,
     }
     if args.out:

@@ -257,7 +257,7 @@ def test_convert_round_trip(scenes):
 
 def test_unported_paths_raise(scenes):
     _, st = scenes
-    for bad in (dict(integrator="sdf_prb_reparam"), dict(warp_kind="conv")):
+    for bad in (dict(warp_kind="conv"), dict(integrator="sdf_prb_reparam", warp_kind="conv")):
         with pytest.raises(NotImplementedError):
             tinteg.render(st, 0, cfg=tinteg.RenderConfig(spp=1, **bad), device="cpu")
     with pytest.raises(ValueError):

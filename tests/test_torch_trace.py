@@ -311,3 +311,21 @@ def test_launch_arguments_match_c_signature(case, monkeypatch):
     ttrace._sphere_trace_kernel(sphere, t(o), t(d), TraceParams(refine_intersection=False))
     args = calls[-1]
     assert args[0] == 1 and args[1] is None and args[6] == sphere.r.data_ptr() and args[24] == 0  # no refinement
+
+
+def test_chip_smoke_trace_bound_charges_active_rays():
+    """The bytes half of K1's bound in ``chip_smoke.py``: the grid, the
+    ``active`` mask and its_t of every lane, and the rays and per-lane
+    ``maxt`` of the active lanes only (an inactive lane's ray is not read);
+    a stride-0 origin counts one row."""
+    import chip_smoke
+
+    sdf = GridSDF.create(torch.zeros(8, 8, 8))
+    n = 100
+    o, d, maxt = torch.zeros(n, 3), torch.zeros(n, 3), torch.ones(n)
+    active = torch.arange(n) < 7
+    grid = 8 ** 3 * 4 + 3 * 4
+    assert chip_smoke.trace_bytes(sdf, o, d, {}) == grid + n * (12 + 12) + n * 4
+    assert chip_smoke.trace_bytes(sdf, o, d, {"active": True}) == grid + n * (12 + 12) + n * 4
+    assert chip_smoke.trace_bytes(sdf, o, d, {"active": active, "maxt": maxt}) == grid + 7 * (12 + 12 + 4) + n + n * 4
+    assert chip_smoke.trace_bytes(sdf, o[:1].expand(n, 3), d, {"active": active}) == grid + 12 + 7 * 12 + n + n * 4
