@@ -37,14 +37,20 @@ line; any failure raises and the script exits non-zero:
    and torus hits of the 256² camera chunk in lane order, and resampled in
    random and in Morton order; then K1 on PRB's ray sets (the bounce rays of
    depths 1 and 2 and the NEE shadow rays of depth 1 of its detached path
-   trace on a ``bunny`` view at 64³, 128², 64 spp) and K2 on their points.
-   ``--kernels-only`` stops after the grid cases (no sphere or hybrid case,
-   no later phase but the launch count of redistancing).
+   trace on a ``bunny`` view at 64³, 128², 64 spp) and K2 on their points;
+   then K1 on the conv warp's auxiliary rays (index 0 about the camera rays
+   and about the NEE shadow rays of that view's 64-spp grad chunk), and on
+   the trace options: the camera chunk at 64³ and 128³ with ``over_relax``
+   1.4 and 1.6 and with ``refine='newton'``, and the same rays at a smooth
+   box (the fixed and Newton refinements, w 1.6), each with its
+   evaluations a ray against w = 1 and its refinement evaluations.
+   ``--kernels-only`` stops after these kernel cases (no later phase but
+   the launch count of redistancing).
 4. ``reference`` — a small primal render on the card against the same
    package's plain path on the host.
 5. ``train``   — ``optimize_shape("bunny", no-tex-12, warp)`` at the
    published widths (12 views, batches of 6, 128² film, 64 + 256 spp, grid
-   16³ → 32³ → 64³) for a few iterations, writing checkpoints and
+   16³ → 32³ → 64³) for 3 iterations, writing checkpoints and
    ``metadata.json``; depth (iterations, reference spp) is cut.  Kernel
    launch counts are zeroed just before and read just after; every kernel
    must have run (redistancing at most 2 CUDA launches a call), and the grid
@@ -68,7 +74,7 @@ line; any failure raises and the script exits non-zero:
    package's golden EXRs at its own bound (atol 5e-4, rtol 1e-3).
 9. ``shadow`` — ``optimize_shape("torus-shadow", torus-shadow-1, warp)`` at
    the published widths (1 view, 64 + 256 spp, the diffuse floor under the
-   vMF sun, grid 8³ → 128³, film 128² then 256²), depth cut to 6 iterations
+   vMF sun, grid 8³ → 128³, film 128² then 256²), depth cut to 5 iterations
    with the grid doubling after 1, 2, 3 and 4 and the film after 4,
    reference spp 64, checkpoints read back; seconds per iteration by (grid,
    film), peak memory and the launches of each kernel; then
@@ -80,17 +86,23 @@ line; any failure raises and the script exits non-zero:
    MIS grad-mode render with its backward pass on the 128³ target, then 2
    iterations of ``optimize_shape("plane_area", no-tex-1, warp)``.
 12. ``prb`` — path-replay backpropagation: ``optimize_shape("bunny",
-   no-tex-12, warpprb)`` at the published widths (depth 4) for 2 iterations
+   no-tex-12, warpprb)`` at the published widths (depth 4) for 1 iteration
    at 16³ with checkpoints, ``optimize_torch.main`` with ``--configs
    warpprbprimary`` for 1, ``torus-shadow-1`` (8³ → 16³) and
    ``mirror-opt-1`` with ``warpprb``, and PRB's oracle (depth 2 against the
    direct integrator with MIS, depth 4 against depth 2) on a 64³ ``bunny``
    view; K1, K2 and redistancing must launch in each run.
-13. ``launch_count`` — the CUDA launches of one redistancing call at every
+13. ``conv`` — the convolution-warp baseline: ``optimize_shape("bunny",
+   no-tex-12, conv)`` at the published widths (16 auxiliary rays for each
+   reparameterized ray) for 2 iterations at 16³ with checkpoints, then
+   ``optimize_torch.main`` with ``--configs conv32`` for 1 iteration; K1,
+   K2 and redistancing must launch in each run; seconds per iteration and
+   peak memory.
+14. ``launch_count`` — the CUDA launches of one redistancing call at every
    size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
    after the timed phases; and the launches and device time of one view of
    the textured step with and without its texture volumes bound.
-14. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+15. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -106,6 +118,9 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# the script's start, for the total of the timing line
+T_START = time.perf_counter()
 
 # Published peaks of one H100 SXM: HBM bytes/s and fp32 FLOP/s outside the
 # tensor cores.  Used for the lower bound on a kernel's time.
@@ -568,19 +583,22 @@ def trace_bytes(sdf, o, d, lanes_kw):
     def stored(x, rows):
         return x.element_size() * x[0].numel() * (1 if x.stride(0) == 0 else rows)
 
-    params = [sdf.data, sdf.p] if hasattr(sdf, "data") else [sdf.p, sdf.r.reshape(1)]
+    params = ([sdf.data, sdf.p] if hasattr(sdf, "data") else [sdf.p, sdf.r.reshape(1)] if hasattr(sdf, "r")
+              else [sdf.p, sdf.extents, sdf.smoothing.reshape(1)])
     rays = [o, d, *(v for k, v in lanes_kw.items() if k != "active" and isinstance(v, torch.Tensor))]
     mask = [active] if per_lane else []
     return (sum(p.numel() * p.element_size() for p in params) + sum(stored(x, n_active) for x in rays)
             + sum(stored(x, d.shape[0]) for x in mask) + d.shape[0] * TRACE_OUT_BYTES_PER_RAY)
 
 
-def trace_case(sdf, o, d, params, lanes_kw):
+def trace_case(sdf, o, d, params, lanes_kw, ops=None):
     """K1 against its plain version on one set of rays: agreement, CUDA-event
     times of the bare launch and of the plain version, and the bound from
-    the steps this run's rays took.  Diagnostics: the step statistics of the
-    rays in lane order, and the bare launch with the rays of 128 steps or more
-    switched off through ``active``."""
+    the steps this run's rays took (``ops(evaluations per ray)`` counts the
+    operations; by default ``TRACE_OPS_PER_EVAL`` an evaluation).
+    Diagnostics: the step statistics of the rays in lane order, and the bare
+    launch with the rays of 128 steps or more switched off through
+    ``active``."""
     import torch
 
     from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
@@ -599,7 +617,7 @@ def trace_case(sdf, o, d, params, lanes_kw):
     max_dt = float((its_k[both] - its_p[both]).abs().max()) if bool(both.any()) else 0.0
     n = o.shape[0]
     evals = int(evals_per_ray.sum())
-    t_ops = evals * TRACE_OPS_PER_EVAL / PEAK_FP32_FLOPS * 1e3
+    t_ops = (evals * TRACE_OPS_PER_EVAL if ops is None else ops(evals_per_ray)) / PEAK_FP32_FLOPS * 1e3
     t_bytes = trace_bytes(sdf, o, d, lanes_kw) / PEAK_BYTES_PER_S * 1e3
     short = evals_per_ray < 128
     # the lanes the path traces: with an ``active`` mask, the others are
@@ -609,15 +627,18 @@ def trace_case(sdf, o, d, params, lanes_kw):
     n_active = int(active.sum())
     short = short & active
     return {
-        "rays": n, "grid_res": sdf.data.shape[0], "hit_share": float(hit_k.float().mean()),
+        "rays": n, "grid_res": sdf.data.shape[0] if hasattr(sdf, "data") else None,
+        "hit_share": float(hit_k.float().mean()),
         "hit_bits_differ_share": float(differ.float().mean()), "max_abs_dits_t_both_hit": max_dt,
         "active_rays": n_active, "hit_bits_differ_rays": int(differ.sum()),
         "hit_bits_differ_share_active": int(differ.sum()) / max(n_active, 1),
         "plain_hit_share_active": int((hit_p & active).sum()) / max(n_active, 1),
         "mean_num_steps": float(evals_per_ray.float().mean()), "max_num_steps": int(evals_per_ray.max()),
+        "p99_num_steps": float(torch.quantile(evals_per_ray[active].float(), 0.99)) if n_active else 0.0,
         "ms": cuda_ms(k1_bare(sdf, o, d, params, lanes_kw)),
         "wrapper_ms": cuda_ms(lambda: tr.sphere_trace(sdf, o, d, params, **lanes_kw)),
-        "plain_ms": cuda_ms(lambda: tr.sphere_trace_plain(sdf, o, d, params, **lanes_kw), repeats=3, warmup=1),
+        # one run of the plain version: the agreement run above warmed it up
+        "plain_ms": cuda_ms(lambda: tr.sphere_trace_plain(sdf, o, d, params, **lanes_kw), repeats=1, warmup=0),
         "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "grid_evaluations": evals,
         **step_statistics(evals_per_ray),
@@ -949,6 +970,162 @@ def phase_prb_trace_kernels(device):
     return trace, grid_eval
 
 
+# Arithmetic of one evaluation of the trace options in csrc/sphere_trace.cu.
+# Over-relaxed step: the value-only evaluation and 6 more (|f| + previous
+# |f| < previous step, the retreat or w |f| select, w and the two carried
+# values).  Newton refinement: value and gradient from the cached window,
+# the K2 count without its point setup (GRID_EVAL_OPS_PER_POINT - 3) plus
+# the ray point 9, then slope 6, rate 3, step 3 and tests 3.  The box: ray
+# point 9, q 9, max(q, 0) 3, its norm 6, the largest q 2, min, sum and
+# smoothing 3, step and tests 5; its gradient for Newton 20 more (signs,
+# the unit vector, the inside axis) and the Newton step 15.
+RELAX_OPS_PER_EVAL = TRACE_OPS_PER_EVAL + 6
+NEWTON_OPS_PER_EVAL = GRID_EVAL_OPS_PER_POINT - 3 + 9 + 15
+BOX_OPS_PER_EVAL = 37
+BOX_NEWTON_OPS_PER_EVAL = BOX_OPS_PER_EVAL + 20 + 15
+# over-relaxation factors of the option sets (the JAX package's documented
+# range 1.2-1.6)
+OVER_RELAX = (1.4, 1.6)
+
+
+def option_ops(trace_only, per_eval, per_refine_eval):
+    """``ops`` for :func:`trace_case`: ``per_eval`` for each evaluation of
+    the trace loop (``trace_only``, the evaluations a launch without the
+    refinement takes on the same rays) and ``per_refine_eval`` for each
+    evaluation of the refinement."""
+    n_trace = int(trace_only.sum())
+    return lambda evals: n_trace * per_eval + (int(evals.sum()) - n_trace) * per_refine_eval
+
+
+def trace_option_sets(device):
+    """K1's sets for the trace options, as ``(name, sdf, o, d, params,
+    lanes_kw, ops, trace_only)``: the camera chunk of
+    :func:`primal_chunk_rays` at 64³ and at the 128³ target with
+    ``over_relax`` 1.4 and 1.6 and with ``refine='newton'``; and the same
+    rays at a smooth box (centre 0.5, half-extents (0.3, 0.2, 0.25),
+    smoothing 0.02) with the fixed and the Newton refinement and with
+    ``over_relax`` 1.6.  ``trace_only`` holds each ray's evaluations of the
+    trace loop alone: a launch with the same options and ``refine_steps =
+    0``, whose loop takes the same steps (the refinement comes after it)."""
+    import dataclasses
+
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import target_sdf
+    from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
+    from differentiable_sdf_rendering_tpu_torch.ops.sdf import BoxSDF, GridSDF
+
+    o, d, _, params = primal_chunk_rays(device)
+    box = BoxSDF.create(p=(0.5, 0.5, 0.5), extents=(0.3, 0.2, 0.25), smoothing=0.02, device=device)
+    sdfs = [(f"{res}", GridSDF.create(target_sdf("bunny", res, device=device))) for res in (64, 128)]
+
+    def with_trace_only(name, sdf, set_params, trace_eval, refine_eval):
+        trace_only = tr._sphere_trace_kernel(sdf, o, d, dataclasses.replace(set_params, refine_steps=0))[1]
+        return name, sdf, o, d, set_params, {}, option_ops(trace_only, trace_eval, refine_eval), trace_only
+
+    for label, sdf in [*sdfs, ("box", box)]:
+        per_eval, newton_eval = ((BOX_OPS_PER_EVAL, BOX_NEWTON_OPS_PER_EVAL) if label == "box"
+                                 else (TRACE_OPS_PER_EVAL, NEWTON_OPS_PER_EVAL))
+        for omega in OVER_RELAX[1:] if label == "box" else OVER_RELAX:
+            yield with_trace_only(f"over_relax_{omega}_{label}", sdf, dataclasses.replace(params, over_relax=omega),
+                                  per_eval + RELAX_OPS_PER_EVAL - TRACE_OPS_PER_EVAL, per_eval)
+        yield with_trace_only(f"newton_{label}", sdf, dataclasses.replace(params, refine="newton"),
+                              per_eval, newton_eval)
+        if label == "box":
+            yield with_trace_only(f"fixed_{label}", sdf, params, per_eval, per_eval)
+
+
+def phase_option_trace_kernels(device, trace):
+    """K1 against its plain version on :func:`trace_option_sets` at the
+    hybrid sets' limits (hit bits over the rays at ``HYBRID_HIT_BITS_LIMIT``,
+    ``its_t`` within 1e-5 where both hit, a plain hit share of at least
+    ``HYBRID_MIN_HIT_SHARE``).  Reports, beside the default-option camera
+    sets of ``trace`` (w = 1, fixed refinement), the mean and p99
+    evaluations a ray (trace and refinement together) of the over-relaxed
+    sets, the mean evaluations of their trace loop alone, and the mean
+    refinement evaluations of a refined ray with Newton and with the fixed
+    rate."""
+    import dataclasses
+
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops import trace as tr
+
+    cases = {}
+    with torch.no_grad():
+        for name, sdf, o, d, params, lanes_kw, ops, trace_only in trace_option_sets(device):
+            case = trace_case(sdf, o, d, params, lanes_kw, ops)
+            _, evals = tr._sphere_trace_kernel(sdf, o, d, params, **lanes_kw)
+            refined = evals > trace_only
+            case["mean_trace_evals"] = float(trace_only.float().mean())
+            case["mean_refine_evals_of_refined_rays"] = (float((evals - trace_only)[refined].float().mean())
+                                                         if bool(refined.any()) else 0.0)
+            base = trace.get(f"camera_{name.rsplit('_', 1)[1]}")
+            if base is not None:
+                case["omega_1"] = {"mean_num_steps": base["mean_num_steps"], "p99_num_steps": base["p99_num_steps"]}
+            if name.startswith("newton"):
+                fixed = dataclasses.replace(params, refine="fixed")
+                _, evals_fixed = tr._sphere_trace_kernel(sdf, o, d, fixed, **lanes_kw)
+                refined = evals_fixed > trace_only
+                case["fixed_mean_refine_evals_of_refined_rays"] = (
+                    float((evals_fixed - trace_only)[refined].float().mean()) if bool(refined.any()) else 0.0)
+            cases[name] = case
+    emit({"phase": "kernels", "sphere_trace_options": cases})
+    for name, case in cases.items():
+        if not (case["hit_bits_differ_share_active"] <= HYBRID_HIT_BITS_LIMIT
+                and case["max_abs_dits_t_both_hit"] <= 1e-5):
+            raise AssertionError(f"sphere-trace kernel disagrees with its plain version ({name}): {case}")
+        if not case["plain_hit_share_active"] >= HYBRID_MIN_HIT_SHARE:
+            raise AssertionError(f"the {name} ray set is degenerate: {case}")
+    return cases
+
+
+def conv_ray_sets(device):
+    """K1's ray sets of the conv warp (``ops/warp_conv.py``) on view 0 of
+    :func:`prb_bunny_view` (64³, 128² film), the first lane chunk of a grad
+    render at the ``conv`` method's 64 spp, 16 auxiliary rays a
+    reparameterized ray, as ``(name, sdf, o, d, params, lanes_kw)``: the
+    auxiliary rays of index 0 about the camera rays, and those of index 0
+    about the NEE shadow rays (the depth-1 block of uniforms; occlusion
+    query, no refinement), every lane of the chunk, as the conv estimator
+    traces them."""
+    import dataclasses
+
+    from differentiable_sdf_rendering_tpu_torch.models import integrator as integ
+    from differentiable_sdf_rendering_tpu_torch.ops.interaction import compute_surface_interaction
+    from differentiable_sdf_rendering_tpu_torch.ops.trace import sphere_trace
+    from differentiable_sdf_rendering_tpu_torch.ops.vecmath import normalize
+    from differentiable_sdf_rendering_tpu_torch.ops.warp_conv import aux_directions
+
+    cfg = integ.RenderConfig(spp=64, warp_kind="conv")
+    scene = prb_bunny_view(device)
+    o, d, uni = camera_chunk_rays(scene.cameras.view(0), cfg.spp, device, integ.n_uniforms(cfg))
+    omega, _ = aux_directions(normalize(d), integ._conv_uni(uni, cfg, 0)[:, 0:2], cfg.conv.kappa)
+    yield "conv_aux_primary_64", scene.sdf, o, omega, cfg.trace, {}
+    si = compute_surface_interaction(scene.sdf, o, d, sphere_trace(scene.sdf, o, d, cfg.trace), differentiable=False)
+    ds_d = integ._nee_sample(scene, si.p, uni[:, 2:4])[0]
+    omega, _ = aux_directions(normalize(ds_d), integ._conv_uni(uni, cfg, 1)[:, 0:2], cfg.conv.kappa)
+    occlusion = dataclasses.replace(cfg.trace, refine_intersection=False)
+    yield "conv_aux_shadow_64", scene.sdf, si.p + ds_d * cfg.shadow_eps, omega, occlusion, {}
+
+
+def phase_conv_trace_kernels(device):
+    """K1 against its plain version on the conv warp's auxiliary rays
+    (:func:`conv_ray_sets`) at the hybrid sets' limits."""
+    import torch
+
+    cases = {}
+    with torch.no_grad():
+        for name, sdf, o, d, params, lanes_kw in conv_ray_sets(device):
+            cases[name] = trace_case(sdf, o, d, params, lanes_kw)
+    emit({"phase": "kernels", "sphere_trace_conv": cases})
+    for name, case in cases.items():
+        if not (case["hit_bits_differ_share_active"] <= HYBRID_HIT_BITS_LIMIT
+                and case["max_abs_dits_t_both_hit"] <= 1e-5):
+            raise AssertionError(f"sphere-trace kernel disagrees with its plain version ({name}): {case}")
+        if not case["plain_hit_share_active"] >= HYBRID_MIN_HIT_SHARE:
+            raise AssertionError(f"the {name} ray set is degenerate: {case}")
+    return cases
+
+
 def phase_hybrid_trace_kernels(device):
     """K1 against its plain version on the hybrid scenes' ray sets
     (:func:`hybrid_ray_sets`): hit bits over the active lanes at
@@ -1068,9 +1245,10 @@ def eikonal_median(grid):
     return float(norm[near].median())
 
 
-# depth cuts of the train phase: iterations (512 in a full run) and samples
-# per pixel of the reference images (512 in a full run)
-ITERS = 4
+# depth cuts of the train phase: iterations (512 in a full run; 3 run the
+# grid at 16³, 32³ and 64³) and samples per pixel of the reference images
+# (512 in a full run)
+ITERS = 3
 REF_SPP = 64
 
 
@@ -1150,7 +1328,7 @@ def check_checkpoints(out_dir, specs, result, n_iter, device):
 
     specs = list(specs)
     files = sorted(os.listdir(os.path.join(out_dir, "params")))
-    want = sorted(f"{s.key}-{tag}.vol" for s in specs for tag in ("data-0000", f"data-{n_iter - 1:04d}", "final"))
+    want = sorted({f"{s.key}-{tag}.vol" for s in specs for tag in ("data-0000", f"data-{n_iter - 1:04d}", "final")})
     if files != want:
         raise AssertionError(f"checkpoints written: {files}, expected {want}")
     ema_back = load_checkpoint(out_dir, "final", specs, device=device)
@@ -1391,8 +1569,8 @@ def phase_textured(device):
 # depth cuts of the shadow phase: iterations (512 in a full run) and the
 # schedules, compressed so that every grid size up to 128³ and the 256²
 # film run: the grid doubles after iterations 1, 2, 3 and 4 (128, 140, 180
-# and 220 in a full run), the film after 4 (220)
-SHADOW_ITERS = 6
+# and 220 in a full run), the film after 4 (220); one iteration at 128³
+SHADOW_ITERS = 5
 SHADOW_SCENE, SHADOW_CONFIG = "torus-shadow", "torus-shadow-1"
 SHADOW_UPSAMPLE, SHADOW_RENDER_UPSAMPLE = (1, 2, 3, 4), (4,)
 
@@ -1441,9 +1619,9 @@ def phase_shadow(device):
 
     seen = [s["sdf"] for s in shapes]
     films = [opt_cfg.res_at(i) for i in range(SHADOW_ITERS)]
-    if [s[0] for s in seen] != [8, 16, 32, 64, 128, 128]:
+    if [s[0] for s in seen] != [8, 16, 32, 64, 128]:
         raise AssertionError(f"grid went through {seen}, expected 8³, 16³, 32³, 64³ and 128³")
-    if films != [(128, 128)] * 4 + [(256, 256)] * 2:
+    if films != [(128, 128)] * 4 + [(256, 256)]:
         raise AssertionError(f"films by iteration {films}")
     scene = result.scene
     if scene.mesh is None or scene.mesh.material != "diffuse" or not isinstance(scene.emitter, VMFEmitter):
@@ -1556,16 +1734,18 @@ def phase_plane_area(device):
 
 
 # depth cuts of the prb phase: iterations (512 in a full run; the grids stay
-# at their first sizes, or double once, as early in a full run)
+# at their first sizes, or double once, as early in a full run); the bunny
+# run at the published widths takes one
 PRB_ITERS = 2
+PRB_BUNNY_ITERS = 1
 PRB_ORACLE_SEEDS = 3
 
 
-def require_prb_launched(where, counts):
+def require_all_launched(where, counts):
     """Fail unless K1, K2 and redistancing were launched in ``counts``."""
-    require_launched(f"PRB {where}", counts)
+    require_launched(where, counts)
     if counts["redistance"] == 0:
-        raise AssertionError(f"redistancing was not launched on the PRB {where} path: {counts}")
+        raise AssertionError(f"redistancing was not launched on the {where} path: {counts}")
 
 
 # The cup's depth-4 gain over depth 2 (m4 / m2 - 1) must lie within
@@ -1623,7 +1803,7 @@ def phase_prb(device):
 
     - ``optimize_shape("bunny", no-tex-12, warpprb)`` at the published
       widths (12 views, batches of 6, 128² film, 64 + 256 spp, depth 4;
-      references from the direct integrator), ``PRB_ITERS`` iterations at
+      references from the direct integrator), ``PRB_BUNNY_ITERS`` iteration at
       the 16³ grid, checkpoints read back;
     - ``optimize_torch.main`` with ``--configs warpprbprimary``, 1 iteration;
     - ``torus-shadow-1`` with ``warpprb`` (diffuse-mesh vertices, vMF NEE at
@@ -1645,18 +1825,18 @@ def phase_prb(device):
     runs = {}
 
     def record(name, result, counts, seconds, peak, shapes):
-        require_prb_launched(name, counts)
+        require_all_launched(f"PRB {name}", counts)
         runs[name] = {"iter_seconds": result.iter_seconds, "loss": result.loss_values,
                       "grid_res": [s["sdf"][0] for s in shapes], "seconds_total": seconds,
                       "peak_memory_bytes": peak, "kernel_launches": counts}
 
     opt_cfg, _ = get_opt_config("no-tex-12")
     assert (opt_cfg.n_sensors, opt_cfg.batch_size, opt_cfg.resx, opt_cfg.resy) == (12, 6, 128, 128)
-    assert opt_cfg.upsample_iter[0] >= PRB_ITERS  # the grid stays 16³
+    assert opt_cfg.upsample_iter[0] >= PRB_BUNNY_ITERS  # the grid stays 16³
     with tempfile.TemporaryDirectory(prefix="chip_smoke_prb_") as out_dir:
-        result, *rest = run_optimize("bunny", opt_cfg, method, PRB_ITERS, output_dir=out_dir, ref_spp=REF_SPP,
+        result, *rest = run_optimize("bunny", opt_cfg, method, PRB_BUNNY_ITERS, output_dir=out_dir, ref_spp=REF_SPP,
                                      target_res=128, device=device)
-        files = check_checkpoints(out_dir, opt_cfg.variables(), result, PRB_ITERS, device)
+        files = check_checkpoints(out_dir, opt_cfg.variables(), result, PRB_BUNNY_ITERS, device)
     record("bunny_no-tex-12", result, *rest)
     runs["bunny_no-tex-12"]["checkpoints"] = files
 
@@ -1668,7 +1848,7 @@ def phase_prb(device):
             losses = json.load(f)["loss_values"]
     if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"optimize_torch.main --configs warpprbprimary: losses {losses}")
-    require_prb_launched("CLI", counts)
+    require_all_launched("PRB CLI", counts)
     runs["cli_warpprbprimary"] = {"loss": losses, "seconds_total": seconds, "peak_memory_bytes": peak,
                                   "kernel_launches": counts}
 
@@ -1688,9 +1868,67 @@ def phase_prb(device):
     record("mirror-opt-1", result, *rest)
 
     oracle = prb_oracle(device)
-    emit({"phase": "prb", "method": method.name, "iterations": PRB_ITERS, "ref_spp": REF_SPP, "max_depth": 4,
+    emit({"phase": "prb", "method": method.name, "iterations": PRB_ITERS, "bunny_iterations": PRB_BUNNY_ITERS,
+          "ref_spp": REF_SPP, "max_depth": 4,
           "runs": runs, "oracle": oracle})
     return [r["kernel_launches"] for r in runs.values()] + [oracle["kernel_launches"]]
+
+# depth cut of the conv phase: iterations (512 in a full run; the grid stays
+# at its first size, 16³, as in the first 64 iterations of a full run)
+CONV_ITERS = 2
+
+
+def phase_conv(device):
+    """The convolution-warp baseline (Bangaru et al. 2020, ``warp_kind=
+    'conv'``) through the entry points, cut in depth only:
+
+    - ``optimize_shape("bunny", no-tex-12, conv)`` at the published widths
+      (12 views, batches of 6, 128² film, 64 + 256 spp, 16 auxiliary rays
+      for each reparameterized ray: the camera ray and the NEE shadow ray),
+      ``CONV_ITERS`` iterations at the 16³ grid, checkpoints read back;
+    - ``optimize_torch.main`` with ``--configs conv32`` (32 auxiliary rays,
+      4·32 auxiliary traces a lane), 1 iteration.
+
+    Each run: seconds per iteration, peak memory, the launches of K1, K2 and
+    redistancing (all three required), finite losses."""
+    import math
+
+    import optimize_torch
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+
+    method = get_config("conv")
+    assert (method.warp_kind, method.n_aux_rays, method.spp, method.primal_spp_mult) == ("conv", 16, 64, 4)
+    opt_cfg, _ = get_opt_config("no-tex-12")
+    assert (opt_cfg.n_sensors, opt_cfg.batch_size, opt_cfg.resx, opt_cfg.resy) == (12, 6, 128, 128)
+    assert opt_cfg.upsample_iter[0] >= CONV_ITERS  # the grid stays 16³
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_conv_") as out_dir:
+        result, counts, seconds, peak, shapes = run_optimize("bunny", opt_cfg, method, CONV_ITERS,
+                                                             output_dir=out_dir, ref_spp=REF_SPP, target_res=128,
+                                                             device=device)
+        files = check_checkpoints(out_dir, opt_cfg.variables(), result, CONV_ITERS, device)
+    require_all_launched("conv", counts)
+    runs["bunny_no-tex-12"] = {"iter_seconds": result.iter_seconds, "loss": result.loss_values,
+                               "grid_res": [s["sdf"][0] for s in shapes], "seconds_total": seconds,
+                               "peak_memory_bytes": peak, "kernel_launches": counts, "checkpoints": files}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_conv32_") as out_dir:
+        _, counts32, seconds32, peak32 = counted(lambda: optimize_torch.main(
+            ["bunny", "--optconfig", "no-tex-12", "--configs", "conv32", "--n_iter", "1",
+             "--refspp", str(REF_SPP), "--outputdir", out_dir]))
+        with open(os.path.join(out_dir, "bunny", "no-tex-12", "conv32", "metadata.json")) as f:
+            metadata = json.load(f)
+    losses = metadata["loss_values"]
+    if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"optimize_torch.main --configs conv32: losses {losses}")
+    require_all_launched("conv32 CLI", counts32)
+    runs["cli_conv32"] = {"loss": losses, "iter_seconds": metadata["iter_seconds"], "seconds_total": seconds32,
+                          "peak_memory_bytes": peak32, "kernel_launches": counts32}
+    emit({"phase": "conv", "method": method.name, "n_aux_rays": method.n_aux_rays, "iterations": CONV_ITERS,
+          "ref_spp": REF_SPP, "runs": runs})
+    return [counts, counts32]
+
 
 GOLDEN_NAMES = ("trefoil", "blob", "cinquefoil")
 
@@ -1831,26 +2069,39 @@ def main(argv):
     emit({"phase": "build", "seconds": built["seconds"], "built": built["built"],
           "ptxas": [ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln]})
 
-    max_err, by_res = phase_kernels(device)
-    trace, grid_eval = phase_trace_kernels(device)
+    phase_seconds = {}
+
+    def timed(name, phase, *args, **kw):
+        """``phase(*args, **kw)``, its wall seconds recorded under ``name``."""
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        phase_seconds[name] = time.perf_counter() - t0
+        return out
+
+    max_err, by_res = timed("kernels_redistance", phase_kernels, device)
+    if argv not in ([], ["--kernels-only"]):
+        raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
+    trace, grid_eval = timed("kernels_path", phase_trace_kernels, device)
+    sphere = timed("kernels_sphere", sphere_case, device)
+    hybrid, hybrid_grid_eval = timed("kernels_hybrid", phase_hybrid_trace_kernels, device)
+    prb_trace, prb_grid_eval = timed("kernels_prb", phase_prb_trace_kernels, device)
+    conv_trace = timed("kernels_conv", phase_conv_trace_kernels, device)
+    option_trace = timed("kernels_options", phase_option_trace_kernels, device, trace)
     if argv == ["--kernels-only"]:
         phase_launch_count(device, k1=False)
         return 0
-    if argv:
-        raise SystemExit(f"usage: chip_smoke.py [--kernels-only]; got {argv}")
-    sphere = sphere_case(device)
-    hybrid, hybrid_grid_eval = phase_hybrid_trace_kernels(device)
-    prb_trace, prb_grid_eval = phase_prb_trace_kernels(device)
-    phase_reference(device)
-    train_counts = phase_train(device)
-    optimize_counts, turntable_counts = phase_cli(device)
-    textured, textured_counts, textured_turntable_counts = phase_textured(device)
-    phase_golden(device)
-    shadow_counts = phase_shadow(device)
-    mirror_counts = phase_mirror(device)
-    plane_area_counts = phase_plane_area(device)
-    prb_counts = phase_prb(device)
-    k1_launches, redistance_launches = phase_launch_count(device, textured=textured)
+    timed("reference", phase_reference, device)
+    train_counts = timed("train", phase_train, device)
+    optimize_counts, turntable_counts = timed("cli", phase_cli, device)
+    textured, textured_counts, textured_turntable_counts = timed("textured", phase_textured, device)
+    timed("golden", phase_golden, device)
+    shadow_counts = timed("shadow", phase_shadow, device)
+    mirror_counts = timed("mirror", phase_mirror, device)
+    plane_area_counts = timed("plane_area", phase_plane_area, device)
+    prb_counts = timed("prb", phase_prb, device)
+    conv_counts = timed("conv", phase_conv, device)
+    k1_launches, redistance_launches = timed("launch_count", phase_launch_count, device, textured=textured)
+    emit({"phase": "timing", "seconds": phase_seconds, "since_start": time.perf_counter() - T_START})
 
     def launches_in(counts, key):
         return sum(c[key] for c in counts)
@@ -1858,10 +2109,11 @@ def main(argv):
     def slice_launches(key):
         """The launches of the hybrid phases: the shadow run (+ its turntable
         frame and CLI iteration), the mirror run, the plane_area renders and
-        run; and of the prb phase (its four runs and its oracle)."""
+        run; of the prb phase (its four runs and its oracle); and of the conv
+        phase (its run and the conv32 CLI iteration)."""
         return {"shadow_launches": launches_in(shadow_counts, key), "mirror_launches": mirror_counts[key],
                 "plane_area_launches": launches_in(plane_area_counts, key),
-                "prb_launches": launches_in(prb_counts, key)}
+                "prb_launches": launches_in(prb_counts, key), "conv_launches": launches_in(conv_counts, key)}
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls
@@ -1869,11 +2121,13 @@ def main(argv):
     # CLI runs, ``textured_launches`` during the textured run and its
     # turntable frame, ``shadow_launches``, ``mirror_launches`` and
     # ``plane_area_launches`` during the hybrid phases, ``prb_launches``
-    # during the prb phase; ``cuda_launches`` the
+    # during the prb phase, ``conv_launches`` during the conv phase;
+    # ``cuda_launches`` the
     # CUDA launches of the redistancing calls (counted by the kernel's C entry).  No single PyTorch call computes any
     # of these functions, so ``library_ms`` is null.
     main_res = by_res[64]
     k1 = trace["camera_64"]
+    k1_sets = {**trace, **hybrid, **prb_trace, **conv_trace, **option_trace}
     k2 = grid_eval["random"]
     emit({"kernels": [
         {
@@ -1899,18 +2153,17 @@ def main(argv):
             "cli_launches": optimize_counts["sphere_trace"] + turntable_counts["sphere_trace"],
             "textured_launches": textured_counts["sphere_trace"] + textured_turntable_counts["sphere_trace"],
             **slice_launches("sphere_trace"),
-            "max_abs_err": max(c["max_abs_dits_t_both_hit"]
-                               for c in [*trace.values(), *hybrid.values(), *prb_trace.values(), sphere]),
-            "hit_bits_differ_share": max(c["hit_bits_differ_share"]
-                                         for c in [*trace.values(), *hybrid.values(), *prb_trace.values(), sphere]),
-            "hybrid_hit_bits_differ_share_active": max(c["hit_bits_differ_share_active"]
-                                                       for c in [*hybrid.values(), *prb_trace.values()]),
+            "max_abs_err": max(c["max_abs_dits_t_both_hit"] for c in [*k1_sets.values(), sphere]),
+            "hit_bits_differ_share": max(c["hit_bits_differ_share"] for c in [*k1_sets.values(), sphere]),
+            "hybrid_hit_bits_differ_share_active": max(
+                c["hit_bits_differ_share_active"]
+                for c in [*hybrid.values(), *prb_trace.values(), *conv_trace.values(), *option_trace.values()]),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": None, "wrapper_ms": k1["wrapper_ms"],
             "wrapper_cuda_launches": k1_launches,
             "shape": f"{k1['rays']} camera rays of a bunny view (128^2 film, 256 spp), 64^3 fp32 grid",
             "sets": {name: {key: c[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
-                     for name, c in {**trace, **hybrid, **prb_trace, "analytic_sphere": sphere}.items()},
+                     for name, c in {**k1_sets, "analytic_sphere": sphere}.items()},
         },
         {
             "name": "grid_eval_grad", "route": "cuda",

@@ -1,6 +1,7 @@
-// Sphere tracing of rays against an SDF (a cubic B-spline grid, or the
-// analytic sphere), with the decreasing-rate intersection refinement: the
-// ray setup, the whole loop and the refinement inside one kernel of
+// Sphere tracing of rays against an SDF (a cubic B-spline grid, the
+// analytic sphere or the smooth box), with the decreasing-rate or the
+// guarded Newton intersection refinement and optional over-relaxed steps:
+// the ray setup, the whole loop and the refinement inside one kernel of
 // persistent blocks whose lanes take a new ray whenever theirs ends.
 //
 // Replaces, for the port, the in-kernel trace loop that the JAX package
@@ -22,6 +23,16 @@
 //     hit when f < eps (its_t = t); else t += |f|; stop when t > maxt;
 //   then, for hit rays with refine_active, up to refine_steps:
 //     t += f * (10 / (10 + s)) until 0 < f <= eps.
+// The trace options of ops/trace.py, switched on by launch-wide
+// parameters (every lane takes the same branch):
+//   over_relax w in (1, 2): step w |f|; when the unbounding spheres of two
+//     steps stop overlapping (|f| + previous |f| < previous step) the lane
+//     steps back by (1 - w) * step and goes on at w = 1; a retreat is never
+//     a hit, and the lane stops on the conservative t + |f| > maxt;
+//   refine 'newton': t += (f - eps / 2) * min(-1 / (d . grad f), 4) where
+//     d . grad f < -0.25, else at the fixed rate; the same stopping band.
+//   The gradient comes from the same tap window as the value (grid), or in
+//   closed form (sphere, box).
 //
 // What bounds it, on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md
 // has every number, with those of PR 4's tuning builds).  The work is
@@ -67,7 +78,12 @@
 // refinement rate is (1 / (10 + s)) * 10, as PyTorch evaluates 10.0 /
 // tensor), but products and sums are contracted and the SDF value is summed
 // in the separable order, so a ray whose f lands within rounding of eps may
-// stop one step earlier or later than in the plain version.
+// stop one step earlier or later than in the plain version.  The box (whose
+// flat faces make many grazing rays) and the steps of the trace options are
+// written with explicitly rounded products and sums (mul / add below), so
+// that they round as the plain version: on the bunny camera chunk at a box,
+// 6 of 1.1 M hit bits differed from the plain version with contraction, 1
+// without (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,8 +110,26 @@ constexpr int kMinBlocks = 3;
 static_assert(kRefillMin >= 1 && kRefillMin <= 32, "a refill threshold is within a warp");
 static_assert(kChunk >= 32, "a claim must cover a warp's candidates");
 
+// Products and sums that are never contracted into a fused multiply-add, so
+// that they round as the plain version's separate operations: the box
+// (whose flat faces make grazing rays that a last-bit difference in a ray's
+// position or direction can move across the hit threshold) and the steps
+// of the trace options use them; the grid's default path keeps contraction
+// (kernels.FMAD).
+template <bool kExact>
+__device__ __forceinline__ float mul(float a, float b) {
+    return kExact ? __fmul_rn(a, b) : a * b;
+}
+template <bool kExact>
+__device__ __forceinline__ float add(float a, float b) {
+    return kExact ? __fadd_rn(a, b) : a + b;
+}
+
 // Cubic B-spline grid translated by origin; the box is [origin, origin + 1].
+// kExact: whether the ray setup and the ray's points round as the plain
+// version (see mul / add).
 struct GridSdf {
+    static constexpr bool kExact = false;
     using Cache = tricubic::TapCache;
     tricubic::Grid g;
     const float* origin;
@@ -118,10 +152,14 @@ struct GridSdf {
     __device__ float eval(float x, float y, float z, Cache& c) const {
         return tricubic::value_cached(g, x - ox, y - oy, z - oz, c);
     }
+    __device__ float eval_grad(float x, float y, float z, Cache& c, float grad[3]) const {
+        return tricubic::value_grad_cached(g, x - ox, y - oy, z - oz, c, grad);
+    }
 };
 
 // Analytic sphere |x - center| - radius; the box is center -+ 0.5.
 struct SphereSdf {
+    static constexpr bool kExact = false;
     struct Cache {};
     const float* center;
     const float* radius;
@@ -146,6 +184,77 @@ struct SphereSdf {
         const float dx = x - cx, dy = y - cy, dz = z - cz;
         return sqrtf((dx * dx + dy * dy) + dz * dz) - r;
     }
+    // gradient (x - c) / max(|x - c|, 1e-20), as SphereSDF.eval_and_grad
+    __device__ float eval_grad(float x, float y, float z, Cache&, float grad[3]) const {
+        const float dx = x - cx, dy = y - cy, dz = z - cz;
+        const float n = sqrtf((dx * dx + dy * dy) + dz * dz);
+        const float m = fmaxf(n, 1e-20f);
+        grad[0] = dx / m;
+        grad[1] = dy / m;
+        grad[2] = dz / m;
+        return n - r;
+    }
+};
+
+// Smooth box |max(q, 0)| + min(max_k q_k, 0) - smoothing with q = |x - p| -
+// extents (ops/sdf.py::BoxSDF); the box of the trace is p -+ 0.5.  Its
+// gradient is sign(x - p) * (max(q, 0) / |max(q, 0)| outside the sharp
+// box, the one-hot axis of the largest q_k inside), as BoxSDF.eval_and_grad.
+struct BoxSdf {
+    static constexpr bool kExact = true;
+    struct Cache {};
+    const float* center;
+    const float* shape;  // extents (3) and smoothing
+    float cx, cy, cz, ex, ey, ez, smooth;
+
+    __device__ void load() {
+        cx = __ldg(center + 0);
+        cy = __ldg(center + 1);
+        cz = __ldg(center + 2);
+        ex = __ldg(shape + 0);
+        ey = __ldg(shape + 1);
+        ez = __ldg(shape + 2);
+        smooth = __ldg(shape + 3);
+    }
+    __device__ void bbox(float expand, float lo[3], float hi[3]) const {
+        const float p[3] = {cx, cy, cz};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            lo[k] = (p[k] - 0.5f) - expand;
+            hi[k] = (p[k] + 0.5f) + expand;
+        }
+    }
+    __device__ void clear(Cache&) const {}
+    __device__ float eval(float x, float y, float z, Cache&) const {
+        const float qx = fabsf(x - cx) - ex, qy = fabsf(y - cy) - ey, qz = fabsf(z - cz) - ez;
+        const float px = fmaxf(qx, 0.0f), py = fmaxf(qy, 0.0f), pz = fmaxf(qz, 0.0f);
+        const float outside = sqrtf(add<true>(add<true>(mul<true>(px, px), mul<true>(py, py)), mul<true>(pz, pz)));
+        return (outside + fminf(fmaxf(fmaxf(qx, qy), qz), 0.0f)) - smooth;
+    }
+    __device__ float eval_grad(float x, float y, float z, Cache&, float grad[3]) const {
+        const float rel[3] = {x - cx, y - cy, z - cz};
+        const float ext[3] = {ex, ey, ez};
+        float q[3], qp[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            q[k] = fabsf(rel[k]) - ext[k];
+            qp[k] = fmaxf(q[k], 0.0f);
+        }
+        const float n = sqrtf(add<true>(add<true>(mul<true>(qp[0], qp[0]), mul<true>(qp[1], qp[1])),
+                                        mul<true>(qp[2], qp[2])));
+        int axis = 0;  // the first axis of the largest q_k
+        if (q[1] > q[axis]) axis = 1;
+        if (q[2] > q[axis]) axis = 2;
+        const float qmax = q[axis];
+        const float m = fmaxf(n, 1e-30f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            const float s = rel[k] > 0.0f ? 1.0f : (rel[k] < 0.0f ? -1.0f : 0.0f);
+            const float inside = (k == axis && qmax < 0.0f) ? 1.0f : 0.0f;
+            grad[k] = s * (qp[k] / m + inside);
+        }
+        return (n + fminf(qmax, 0.0f)) - smooth;
+    }
 };
 
 // The rays' operands.  Lane i of a per-lane operand is at ptr[i * stride];
@@ -169,6 +278,10 @@ struct Rays {
 
 struct Params {
     float bbox_expand, trace_eps, step_scale;
+    // over_relax > 1 turns over-relaxation on; relax_retreat = 1 - over_relax
+    // as the caller rounds it to float32
+    float over_relax, relax_retreat;
+    int newton;  // refine with the guarded Newton step
     int max_steps, refine_steps;
 };
 
@@ -185,6 +298,9 @@ struct Ray {
     int steps;   // evaluations of the trace loop
     int refine;  // -1 while tracing, else refinement steps taken
     int refine_ok;
+    // over-relaxation: the lane's w, its previous |f| and its previous
+    // step's length
+    float omega, prev_radius, step_len;
 };
 
 // An inactive ray is not traced, so nothing else of it is read.
@@ -211,7 +327,9 @@ __device__ bool setup_ray(const Sdf& sdf, const Params& prm, const RayInput& in,
     if (!in.active) return false;
     const float o3[3] = {in.ox, in.oy, in.oz};
     float d3[3] = {in.dx, in.dy, in.dz};
-    const float norm = sqrtf(fmaxf((d3[0] * d3[0] + d3[1] * d3[1]) + d3[2] * d3[2], 1e-30f));
+    constexpr bool e = Sdf::kExact;
+    const float norm =
+        sqrtf(fmaxf(add<e>(add<e>(mul<e>(d3[0], d3[0]), mul<e>(d3[1], d3[1])), mul<e>(d3[2], d3[2])), 1e-30f));
     float lo[3], hi[3];
     sdf.bbox(prm.bbox_expand, lo, hi);
     float mint = -INFINITY, tmax = INFINITY;
@@ -247,13 +365,47 @@ __device__ bool setup_ray(const Sdf& sdf, const Params& prm, const RayInput& in,
 
 // One evaluation of the ray's trace or refinement.  Returns 0 while the ray
 // goes on, 1 when it has ended on the surface (its_t = ray.t), 2 when it has
-// missed (its_t = inf).
+// missed (its_t = inf).  Over-relaxation and the Newton refinement are each
+// switched on by their parameter.
 template <class Sdf>
 __device__ int advance(const Sdf& sdf, const Params& prm, Ray& ray, typename Sdf::Cache& cache) {
-    const float f = sdf.eval(ray.ox + ray.t * ray.dx, ray.oy + ray.t * ray.dy, ray.oz + ray.t * ray.dz, cache) *
-                    prm.step_scale;
+    constexpr bool e = Sdf::kExact;
+    const float x = add<e>(ray.ox, mul<e>(ray.t, ray.dx)), y = add<e>(ray.oy, mul<e>(ray.t, ray.dy)),
+                z = add<e>(ray.oz, mul<e>(ray.t, ray.dz));
+    if (ray.refine >= 0 && prm.newton) {
+        float g[3];
+        const float f = sdf.eval_grad(x, y, z, cache, g) * prm.step_scale;
+        const float slope =
+            add<true>(add<true>(mul<true>(g[0], ray.dx), mul<true>(g[1], ray.dy)), mul<true>(g[2], ray.dz)) *
+            prm.step_scale;
+        const float rate_fb = (1.0f / (10.0f + (float)ray.refine)) * 10.0f;
+        // -1 / slope as PyTorch evaluates -1.0 / tensor: (1 / slope) * -1
+        const float rate = slope < -0.25f ? fminf(-(1.0f / slope), 4.0f) : rate_fb;
+        ray.t = add<true>(ray.t, mul<true>(__fsub_rn(f, mul<true>(0.5f, ray.eps)), rate));
+        ray.refine += 1;
+        return (!(f <= 0.0f || f > ray.eps) || ray.refine >= prm.refine_steps) ? 1 : 0;
+    }
+    const float f = sdf.eval(x, y, z, cache) * prm.step_scale;
     if (ray.refine < 0) {
         ray.steps += 1;
+        if (prm.over_relax > 1.0f) {
+            const float radius = fabsf(f);
+            const bool fail = ray.omega > 1.0f && radius + ray.prev_radius < ray.step_len;
+            if (!fail && f < ray.eps) {
+                if (!ray.refine_ok) return 1;
+                ray.refine = 0;  // refine from this t
+                return 0;
+            }
+            const float step = fail ? mul<true>(prm.relax_retreat, ray.step_len) : mul<true>(radius, ray.omega);
+            // a retreat never ends the ray; otherwise the conservative reach
+            // t + |f| decides, not the w-inflated step
+            const bool go = fail || ray.t + radius <= ray.maxt;
+            ray.t = add<true>(ray.t, step);
+            ray.omega = fail ? 1.0f : ray.omega;
+            ray.prev_radius = fail ? 0.0f : radius;
+            ray.step_len = fabsf(step);
+            return (!go || ray.steps >= prm.max_steps) ? 2 : 0;
+        }
         if (f < ray.eps) {
             if (!ray.refine_ok) return 1;
             ray.refine = 0;  // refine from this t
@@ -263,7 +415,7 @@ __device__ int advance(const Sdf& sdf, const Params& prm, Ray& ray, typename Sdf
         return (!(ray.t <= ray.maxt) || ray.steps >= prm.max_steps) ? 2 : 0;
     }
     const float rate = (1.0f / (10.0f + (float)ray.refine)) * 10.0f;
-    ray.t = ray.t + f * rate;
+    ray.t = add<e>(ray.t, mul<e>(f, rate));
     ray.refine += 1;
     return (!(f <= 0.0f || f > ray.eps) || ray.refine >= prm.refine_steps) ? 1 : 0;
 }
@@ -349,7 +501,7 @@ sphere_trace_kernel(Sdf sdf, Rays rays, Params prm, float* __restrict__ its_t, i
                 const float t = shfl(c.t, src), maxt = shfl(c.maxt, src), eps = shfl(c.eps, src);
                 const int refine_ok = shfl(c.refine_ok, src);
                 if (take) {
-                    ray = Ray{ox, oy, oz, dx, dy, dz, t, maxt, eps, 0, -1, refine_ok};
+                    ray = Ray{ox, oy, oz, dx, dy, dz, t, maxt, eps, 0, -1, refine_ok, prm.over_relax, 0.0f, 0.0f};
                     id = (int)(lo + src);
                 }
                 lo += consumed;
@@ -404,37 +556,45 @@ int launch(const Sdf& sdf, const Rays& rays, const Params& prm, void* its_t, voi
 
 // Traces n rays (n < 2^31).  sdf_kind 0: the grid (zres, yres, xres) float32
 // contiguous, translated by p (3 floats on the device); sdf_kind 1: the
-// sphere of centre p (3 floats) and radius r (1 float), both on the device.
+// sphere of centre p (3 floats) and radius r (1 float), both on the device;
+// sdf_kind 2: the box of centre p (3 floats) with r = its half-extents and
+// smoothing (4 floats), on the device.
 // o, d: float32 rows of 3 with lane strides o_stride, d_stride (elements;
 // 0 broadcasts); maxt (float32), active and refine (uint8 or bool): per-lane
-// with the given stride, or null for the scalar beside them.  next_ray: one
-// unsigned int on the device, zero before the launch.  refine_steps = 0
-// skips the refinement.  Writes its_t (inf = miss) and num_steps
-// (evaluations of the trace loop and the refinement together).  One launch
-// on `stream`; nothing is allocated and nothing synchronises.  Returns
-// cudaGetLastError() after the launch (0 = success).
+// with the given stride, or null for the scalar beside them.  over_relax in
+// [1, 2) (1 = off) with relax_retreat = 1 - over_relax rounded to float32;
+// newton != 0 refines with the Newton step.  next_ray: one unsigned int on
+// the device, zero before the launch.  refine_steps = 0 skips the
+// refinement.  Writes its_t (inf = miss) and num_steps (evaluations of the
+// trace loop and the refinement together).  One launch on `stream`; nothing
+// is allocated and nothing synchronises.  Returns cudaGetLastError() after
+// the launch (0 = success).
 extern "C" int sphere_trace_run(int sdf_kind, const void* grid, int xres, int yres, int zres, const void* p,
                                 const void* r, const void* o, long long o_stride, const void* d,
                                 long long d_stride, const void* maxt, long long maxt_stride, float maxt_value,
                                 const void* active, long long active_stride, int active_value,
                                 const void* refine, long long refine_stride, int refine_value,
-                                float bbox_expand, float trace_eps, float step_scale, int max_steps,
-                                int refine_steps, void* its_t, void* num_steps, void* next_ray, long long n,
-                                void* stream) {
+                                float bbox_expand, float trace_eps, float step_scale, float over_relax,
+                                float relax_retreat, int newton, int max_steps, int refine_steps, void* its_t,
+                                void* num_steps, void* next_ray, long long n, void* stream) {
     if (n <= 0) return (int)cudaGetLastError();
     if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    if (!(over_relax >= 1.0f && over_relax < 2.0f)) return (int)cudaErrorInvalidValue;
     const Rays rays{(const float*)o, o_stride, (const float*)d, d_stride,
                     (const float*)maxt, maxt_stride, maxt_value,
                     (const uint8_t*)active, active_stride, active_value,
                     (const uint8_t*)refine, refine_stride, refine_value};
-    const Params prm{bbox_expand, trace_eps, step_scale, max_steps, refine_steps};
+    const Params prm{bbox_expand, trace_eps, step_scale, over_relax, relax_retreat, newton, max_steps, refine_steps};
     const cudaStream_t s = (cudaStream_t)stream;
     if (sdf_kind == 1) {
         const SphereSdf sdf{(const float*)p, (const float*)r, 0.0f, 0.0f, 0.0f, 0.0f};
+        return launch(sdf, rays, prm, its_t, num_steps, next_ray, (unsigned)n, s);
+    }
+    if (sdf_kind == 2) {
+        const BoxSdf sdf{(const float*)p, (const float*)r, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         return launch(sdf, rays, prm, its_t, num_steps, next_ray, (unsigned)n, s);
     }
     if (sdf_kind != 0) return (int)cudaErrorInvalidValue;
     const GridSdf sdf{{(const float*)grid, xres, yres, zres}, (const float*)p, 0.0f, 0.0f, 0.0f};
     return launch(sdf, rays, prm, its_t, num_steps, next_ray, (unsigned)n, s);
 }
-

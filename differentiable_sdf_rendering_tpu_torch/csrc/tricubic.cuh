@@ -136,53 +136,56 @@ struct TapCache {
 
 __device__ __forceinline__ void clear(TapCache& c) { c.bx = INT_MIN; }
 
+// Makes the thread's tap cache hold the window of base voxel (bx, by, bz).
+// A reload issues all 64 tap loads together, scalar: when no tap is
+// clamped, at fixed strides from the window's first voxel, which saves the
+// per-tap index arithmetic (measured 0.03-0.05 ms faster on the path's
+// rays, PERF.md); otherwise at the clamped indices.
+__device__ __forceinline__ void load_window(const Grid& g, int bx, int by, int bz, TapCache& c) {
+    if (bx == c.bx && by == c.by && bz == c.bz) return;
+    c.bx = bx;
+    c.by = by;
+    c.bz = bz;
+    if (bx >= 1 && bx + 2 < g.xres && by >= 1 && by + 2 < g.yres && bz >= 1 && bz + 2 < g.zres) {
+        // no tap clamped: the window is 4 x 4 rows of 4 at fixed strides
+        // from its first voxel, and each load takes an immediate offset
+        const long long sy = g.xres, sz = (long long)g.yres * g.xres;
+        const float* p0 = g.data + (bz - 1) * sz + (by - 1) * sy + (bx - 1);
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+                const float* row = p0 + z * sz + y * sy;
+#pragma unroll
+                for (int x = 0; x < 4; ++x) c.t[(z * 4 + y) * 4 + x] = __ldg(row + x);
+            }
+        }
+    } else {
+        int ix[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ix[k] = tap_index(bx, k, g.xres);
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+            const long long iz = tap_index(bz, z, g.zres);
+#pragma unroll
+            for (int y = 0; y < 4; ++y) {
+                // int64: a grid may exceed 2^31 voxels
+                const float* row = g.data + (iz * g.yres + tap_index(by, y, g.yres)) * (long long)g.xres;
+#pragma unroll
+                for (int x = 0; x < 4; ++x) c.t[(z * 4 + y) * 4 + x] = __ldg(row + ix[x]);
+            }
+        }
+    }
+}
+
 // Value at the point (px, py, pz), already relative to the grid's origin,
-// through the thread's tap cache.  A reload issues all 64 tap loads
-// together, scalar: when no tap is clamped, at fixed strides from the
-// window's first voxel, which saves the per-tap index arithmetic (measured
-// 0.03-0.05 ms faster on the path's rays, PERF.md, PR 4); otherwise at the
-// clamped indices.
+// through the thread's tap cache.
 __device__ __forceinline__ float value_cached(const Grid& g, float px, float py, float pz, TapCache& c) {
     float fx, fy, fz;
     const int bx = axis_base(px, g.xres, fx);
     const int by = axis_base(py, g.yres, fy);
     const int bz = axis_base(pz, g.zres, fz);
-    if (bx != c.bx || by != c.by || bz != c.bz) {
-        c.bx = bx;
-        c.by = by;
-        c.bz = bz;
-        if (bx >= 1 && bx + 2 < g.xres && by >= 1 && by + 2 < g.yres && bz >= 1 &&
-            bz + 2 < g.zres) {
-            // no tap clamped: the window is 4 x 4 rows of 4 at fixed strides
-            // from its first voxel, and each load takes an immediate offset
-            const long long sy = g.xres, sz = (long long)g.yres * g.xres;
-            const float* p0 = g.data + (bz - 1) * sz + (by - 1) * sy + (bx - 1);
-#pragma unroll
-            for (int z = 0; z < 4; ++z) {
-#pragma unroll
-                for (int y = 0; y < 4; ++y) {
-                    const float* row = p0 + z * sz + y * sy;
-#pragma unroll
-                    for (int x = 0; x < 4; ++x) c.t[(z * 4 + y) * 4 + x] = __ldg(row + x);
-                }
-            }
-        } else {
-            int ix[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) ix[k] = tap_index(bx, k, g.xres);
-#pragma unroll
-            for (int z = 0; z < 4; ++z) {
-                const long long iz = tap_index(bz, z, g.zres);
-#pragma unroll
-                for (int y = 0; y < 4; ++y) {
-                    // int64: a grid may exceed 2^31 voxels
-                    const float* row = g.data + (iz * g.yres + tap_index(by, y, g.yres)) * (long long)g.xres;
-#pragma unroll
-                    for (int x = 0; x < 4; ++x) c.t[(z * 4 + y) * 4 + x] = __ldg(row + ix[x]);
-                }
-            }
-        }
-    }
+    load_window(g, bx, by, bz, c);
     float wx[4], wy[4], wz[4];
     weights(fx, wx);
     weights(fy, wy);
@@ -196,6 +199,43 @@ __device__ __forceinline__ float value_cached(const Grid& g, float px, float py,
         sz[z] = dot4(sy, wy);
     }
     return dot4(sz, wz);
+}
+
+// Value and gradient (w.r.t. the normalised point) at (px, py, pz), already
+// relative to the grid's origin, through the thread's tap cache: the
+// contraction of value_grad on the cached window (the Newton refinement of
+// the sphere trace).
+__device__ __forceinline__ float value_grad_cached(const Grid& g, float px, float py, float pz, TapCache& c,
+                                                  float grad[3]) {
+    float fx, fy, fz;
+    const int bx = axis_base(px, g.xres, fx);
+    const int by = axis_base(py, g.yres, fy);
+    const int bz = axis_base(pz, g.zres, fz);
+    load_window(g, bx, by, bz, c);
+    float wx[4], wy[4], wz[4], dwx[4], dwy[4], dwz[4];
+    weights(fx, wx);
+    weights(fy, wy);
+    weights(fz, wz);
+    dweights(fx, dwx);
+    dweights(fy, dwy);
+    dweights(fz, dwz);
+    float a[4], b[4], cc[4];
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+        float sx[4], sdx[4];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+            sx[y] = dot4(&c.t[(z * 4 + y) * 4], wx);
+            sdx[y] = dot4(&c.t[(z * 4 + y) * 4], dwx);
+        }
+        a[z] = dot4(sx, wy);
+        b[z] = dot4(sx, dwy);
+        cc[z] = dot4(sdx, wy);
+    }
+    grad[0] = dot4(cc, wz) * (float)g.xres;
+    grad[1] = dot4(b, wz) * (float)g.yres;
+    grad[2] = dot4(a, dwz) * (float)g.zres;
+    return dot4(a, wz);
 }
 
 // Value and gradient (w.r.t. the normalised point) at (px, py, pz).

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 # FMA contraction (-fmad) per source.  Off where a kernel must round like its
 # plain PyTorch version: the redistancing kernel equals it bit for bit, and
 # the grid evaluation measured no faster with it.  On for the sphere trace,
-# which it makes faster within the trace's limits (csrc/sphere_trace.cu).
+# which it makes faster within the trace's limits; its box and its trace
+# options round each operation apart all the same (csrc/sphere_trace.cu).
 FMAD = {"redistance": False, "sphere_trace": True, "grid_eval": False}
 
 _VOIDP = ctypes.c_void_p
@@ -54,7 +55,8 @@ SOURCES = {
             [_INT, _VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP]  # SDF
             + [_VOIDP, _I64, _VOIDP, _I64]  # o, d
             + [_VOIDP, _I64, _FLOAT] + [_VOIDP, _I64, _INT] * 2  # maxt, active, refine_active
-            + [_FLOAT, _FLOAT, _FLOAT, _INT, _INT]  # bbox_expand, trace_eps, step_scale, steps
+            + [_FLOAT] * 5 + [_INT]  # bbox_expand, trace_eps, step_scale, over_relax, 1 - over_relax, newton
+            + [_INT, _INT]  # max_steps, refine_steps
             + [_VOIDP] * 3 + [_I64, _VOIDP],  # its_t, num_steps, ray counter, n, stream
         ),
     },

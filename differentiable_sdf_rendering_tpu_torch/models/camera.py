@@ -11,6 +11,7 @@ the device.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ from ..ops.vecmath import integer_pow, normalize
 
 __all__ = [
     "PerspectiveCamera",
+    "SphericalCamera",
     "look_at",
     "regular_cameras",
     "regular_cameras_top",
@@ -84,6 +86,50 @@ class PerspectiveCamera:
         cos_theta = z / torch.sqrt(torch.clamp_min(torch.sum(p_cam * p_cam, -1), 1e-20))
         importance = integer_pow(cos_theta, -3)
         return pos, importance
+
+
+@dataclasses.dataclass(frozen=True)
+class SphericalCamera:
+    """Equirectangular (``uniform=False``: v ∝ θ) or uniform-sphere
+    (``uniform=True``: v ∝ (1 − cos θ)/2) sensor around ``origin``, y up; one
+    view."""
+
+    origin: torch.Tensor  # (3,)
+    resx: int = 256
+    resy: int = 128
+    uniform: bool = False
+
+    @property
+    def n_views(self):
+        return 1
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def view(self, i):
+        return self
+
+    def sample_ray(self, pos_pixels):
+        """Film position (N, 2) in pixels → (origin (N, 3), dir (N, 3))."""
+        u = pos_pixels[..., 0] / self.resx
+        v = pos_pixels[..., 1] / self.resy
+        if self.uniform:
+            ct = 1.0 - 2.0 * v
+            st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+        else:
+            theta = v * math.pi
+            ct, st = torch.cos(theta), torch.sin(theta)
+        phi = u * 2.0 * math.pi
+        d = torch.stack([st * torch.cos(phi), ct, st * torch.sin(phi)], dim=-1)
+        return self.origin.expand(d.shape), d
+
+    def project(self, p):
+        """World point → (film position (N, 2) in pixels, importance 1)."""
+        d = normalize(p - self.origin)
+        theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+        phi = torch.remainder(torch.atan2(d[..., 2], d[..., 0]), 2.0 * math.pi)
+        pos = torch.stack([phi / (2.0 * math.pi) * self.resx, theta / math.pi * self.resy], dim=-1)
+        return pos, torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
 
 
 def _np_normalize(v):

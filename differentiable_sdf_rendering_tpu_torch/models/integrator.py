@@ -16,8 +16,9 @@ Integrators, by name:
     ``max_depth`` bounces (``models/prb.py``).
 Scenes may add a triangle mesh (merged with the SDF by nearest t; mirror
 triangles get one specular bounce) and an area emitter at a finite position.
-``warp_kind`` is 'warp' or 'dummy'; the convolution-warp baseline is not
-implemented here, and asking for it raises.
+``warp_kind`` is 'warp' (the warp field), 'conv' (the convolution-warp
+baseline, ``ops/warp_conv.py``: each reparameterized ray draws its own block
+of auxiliary-ray uniforms) or 'dummy'.
 
 The training loop renders primal at high spp, takes dLoss/dimage, and pulls
 it back through a (lower-spp) grad-mode render with autograd.
@@ -43,6 +44,7 @@ from ..ops.sdf import TraceParams
 from ..ops.trace import sphere_trace, sphere_trace_warp
 from ..ops.vecmath import normalize, replace_grad
 from ..ops.warp import WarpConfig, reparameterize, warp_eval
+from ..ops.warp_conv import ConvWarpConfig, conv_reparameterize
 
 __all__ = [
     "RenderConfig", "MAX_LANES", "lane_chunks", "render_lane_block", "render", "render_chunked", "render_aovs",
@@ -76,8 +78,9 @@ class RenderConfig:
     max_depth: int = 4
     # False ⇒ no reparameterization, det ≡ 1, shading gradients only
     use_warp: bool = True
-    # 'warp' | 'dummy'  ('conv', the convolution baseline, is not ported)
+    # 'warp' (ours) | 'conv' (Bangaru et al. baseline) | 'dummy'
     warp_kind: str = "warp"
+    conv: ConvWarpConfig = ConvWarpConfig()
     # mirrored pixel-jitter pairs within a pixel
     antithetic_sampling: bool = False
 
@@ -89,11 +92,11 @@ def _check_supported(cfg: RenderConfig):
         # the JAX package refuses this pair too: the conv baseline goes with
         # the direct integrator only
         raise NotImplementedError("warp_kind='conv' is not supported by sdf_prb_reparam")
-    if cfg.warp_kind not in ("warp", "dummy"):
+    if cfg.warp_kind not in ("warp", "conv", "dummy"):
         raise NotImplementedError(f"warp_kind '{cfg.warp_kind}' is not ported")
 
 
-def _ray_intersect(scene, o, d, depth, cfg: RenderConfig, mode, maxt=math.inf, occlusion=False):
+def _ray_intersect(scene, o, d, depth, cfg: RenderConfig, mode, maxt=math.inf, occlusion=False, uni_conv=None):
     """Hybrid intersect: the SDF trace merged with the scene's optional
     :class:`TriangleMesh` by nearest t.  Returns ``(its_t, d_reparam, det,
     mesh_aux)``, where ``mesh_aux`` is None for a pure-SDF scene and
@@ -104,7 +107,11 @@ def _ray_intersect(scene, o, d, depth, cfg: RenderConfig, mode, maxt=math.inf, o
     refinement is skipped (it moves ``its_t`` by O(ε) but never flips
     finite↔inf, and ``isfinite(its_t)`` is the only consumed bit).  A
     per-lane bool tensor masks the refinement per lane instead, so that one
-    trace carries shadow and scattering rays together."""
+    trace carries shadow and scattering rays together.
+
+    Under ``warp_kind='conv'`` a reparameterized ray is traced plainly and
+    its direction reparameterized by :func:`conv_reparameterize` with the
+    auxiliary uniforms ``uni_conv`` (N, 2·n_aux_rays)."""
     trace = cfg.trace
     refine_active = True
     if isinstance(occlusion, torch.Tensor):
@@ -117,6 +124,10 @@ def _ray_intersect(scene, o, d, depth, cfg: RenderConfig, mode, maxt=math.inf, o
     if not reparam:
         its_t = sphere_trace(scene.sdf, o, d, trace, maxt=maxt, refine_active=refine_active)
         d1, det = d, torch.ones(its_t.shape, dtype=o.dtype, device=o.device)
+    elif cfg.warp_kind == "conv":
+        its_t = sphere_trace(scene.sdf, o, d, trace, maxt=maxt)
+        u = uni_conv.reshape(uni_conv.shape[:-1] + (cfg.conv.n_aux_rays, 2))
+        d1, det = conv_reparameterize(scene.sdf, o, d, u, cfg.conv, trace)
     else:
         its_t, d1, det = reparameterize(scene.sdf, o, d, cfg.warp, trace, maxt=maxt, refine_active=refine_active)
     if scene.mesh is None:
@@ -160,9 +171,19 @@ def _mesh_diffuse(albedo, wo_local):
     return albedo * (cos / math.pi)[..., None], cos / math.pi
 
 
+def _conv_uni(uni, cfg: RenderConfig, depth: int):
+    """The auxiliary-ray uniforms of the conv reparameterization at ``depth``
+    (0 primary, 1 NEE shadow, 2 MIS BSDF ray): 2·n_aux_rays columns after
+    the first 6; None for the other warp kinds."""
+    if cfg.warp_kind != "conv":
+        return None
+    n = 2 * cfg.conv.n_aux_rays
+    return uni[:, 6 + depth * n: 6 + (depth + 1) * n]
+
+
 def _sample_silhouette(scene, o, d, uni, cfg, mode):
     """Binary coverage × det."""
-    its_t, d1, det, _ = _ray_intersect(scene, o, d, 0, cfg, mode)
+    its_t, d1, det, _ = _ray_intersect(scene, o, d, 0, cfg, mode, uni_conv=_conv_uni(uni, cfg, 0))
     hit = torch.isfinite(its_t).to(o.dtype)
     rgb = (hit * det)[..., None].expand(hit.shape + (3,))
     return rgb, torch.ones_like(hit, dtype=torch.bool), det, d1
@@ -170,7 +191,7 @@ def _sample_silhouette(scene, o, d, uni, cfg, mode):
 
 def _sample_simple_shading(scene, o, d, uni, cfg, mode):
     """Headlight-free debug shading: max(n · normalize(1, 1, 1), 0) × det."""
-    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode)
+    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode, uni_conv=_conv_uni(uni, cfg, 0))
     si, _ = _compute_si(scene, o, d1, its_t, maux, differentiable=mode != "primal")
     l_dir = normalize(torch.ones(3, dtype=o.dtype, device=o.device))
     shade = torch.clamp_min(torch.sum(si.n * l_dir, -1), 0.0)
@@ -257,6 +278,9 @@ def _mirror_bounce(scene, o, d1, its_t, det, si, is_mesh, maux, cfg, mode):
     radiance lookup; a second mesh hit seen in the mirror absorbs."""
     if cfg.decouple_reparam:
         raise NotImplementedError("mirror scenes with decouple_reparam are not supported")
+    if cfg.warp_kind == "conv":
+        # the JAX package refuses this pair too
+        raise NotImplementedError("mirror scenes are not supported with warp_kind='conv'")
     is_mirror = is_mesh & maux[3]
     mirror3 = is_mirror[..., None]
     o_r, d_r = _mirror_rays(si, o, d1, is_mirror, cfg)
@@ -279,7 +303,7 @@ def _sample_direct(scene, o, d, uni, cfg: RenderConfig, mode):
     optional MIS BSDF sampling and, on a scene with mirror triangles, one
     specular bounce.  Returns ``(rgb, valid_ray, det, d1)``."""
     reparametrize = mode != "primal"
-    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode)
+    its_t, d1, det, maux = _ray_intersect(scene, o, d, 0, cfg, mode, uni_conv=_conv_uni(uni, cfg, 0))
     si, is_mesh = _compute_si(scene, o, d1, its_t, maux,
                               differentiable=reparametrize and not cfg.debug_nondiff_si)
     if cfg.debug_detach_normals:
@@ -329,14 +353,15 @@ def _sample_direct(scene, o, d, uni, cfg: RenderConfig, mode):
                               torch.full_like(ds_dist, math.inf))
 
     if cfg.use_mis:
-        # The shadow rays and the BSDF-sampled rays go through one depth-1
-        # trace of 2N lanes, as in the JAX package: a lane's result does not
-        # depend on the lanes beside it, and the occlusion mask keeps the
-        # refinement off the shadow half.
         si_det = si.detach()
         bs_wo, bs_pdf, bs_weight = scene.bsdf.sample(si_det, uni[:, 4:6].detach())
         bsdf_d = si_det.to_world(bs_wo).detach()
         bsdf_o = si.p + bsdf_d * cfg.shadow_eps
+    if cfg.use_mis and cfg.warp_kind != "conv":
+        # The shadow rays and the BSDF-sampled rays go through one depth-1
+        # trace of 2N lanes, as in the JAX package: a lane's result does not
+        # depend on the lanes beside it, and the occlusion mask keeps the
+        # refinement off the shadow half.
         n_l = shadow_o.shape[0]
         t_m, d_m, det_m, _ = _ray_intersect(
             scene, torch.cat([shadow_o, bsdf_o]), torch.cat([ds_d, bsdf_d]), 1, cfg, mode,
@@ -347,8 +372,12 @@ def _sample_direct(scene, o, d, uni, cfg: RenderConfig, mode):
         occluded_t, det_e = t_m[:n_l], det_m[:n_l]
         t_b, d_b, det_b = t_m[n_l:], d_m[n_l:], det_m[n_l:]
     else:
+        # conv keeps two calls: each reparameterization has its own block of
+        # auxiliary uniforms
         occluded_t, _, det_e, _ = _ray_intersect(scene, shadow_o, ds_d, 1, cfg, mode, maxt=shadow_maxt,
-                                                 occlusion=True)
+                                                 occlusion=True, uni_conv=_conv_uni(uni, cfg, 1))
+        if cfg.use_mis:
+            t_b, d_b, det_b, _ = _ray_intersect(scene, bsdf_o, bsdf_d, 1, cfg, mode, uni_conv=_conv_uni(uni, cfg, 2))
     visibility = (~torch.isfinite(occluded_t)).to(o.dtype)
 
     wo = si.to_local(ds_d)
@@ -410,11 +439,18 @@ _INTEGRATORS = {
 }
 
 
-def n_uniforms(cfg: RenderConfig) -> int:
-    """Uniforms a lane draws: 6 (pixel jitter, NEE, BSDF), and 8 more a
-    bounce for PRB.  Each column is keyed by its own counter, so the first 6
-    are the same for every integrator."""
-    return 6 + (8 * cfg.max_depth if cfg.integrator == "sdf_prb_reparam" else 0)
+def n_uniforms(cfg: RenderConfig, mode="grad") -> int:
+    """Uniforms a lane draws: 6 (pixel jitter, NEE, BSDF), 8 more a bounce
+    for PRB, and under the conv warp in grad mode 2·n_aux_rays for each
+    reparameterized ray (the primary and the NEE shadow ray, and the MIS
+    BSDF ray).  Each column is keyed by its own counter, so the first 6 are
+    the same for every integrator, warp kind and mode; a primal render,
+    which reparameterizes nothing, does not draw the auxiliary rays'
+    columns."""
+    n = 6 + (8 * cfg.max_depth if cfg.integrator == "sdf_prb_reparam" else 0)
+    if cfg.warp_kind == "conv" and mode != "primal":
+        n += (6 if cfg.use_mis else 4) * cfg.conv.n_aux_rays
+    return n
 
 
 def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal"):
@@ -434,7 +470,7 @@ def render_lane_block(scene, camera, lane, seed, cfg: RenderConfig, mode="primal
     pix = torch.div(lane, spp, rounding_mode="floor")
     py = torch.div(pix, pw, rounding_mode="floor").to(torch.float32) - b
     px = (pix % pw).to(torch.float32) - b
-    uni = lane_uniforms(seed, lane, n_uniforms(cfg))
+    uni = lane_uniforms(seed, lane, n_uniforms(cfg, mode))
 
     jx, jy = uni[:, 0], uni[:, 1]
     if cfg.antithetic_sampling:

@@ -28,13 +28,16 @@ class TraceParams:
     value for value, so configs compare equal across the two)."""
 
     step_scale: float = 1.0
-    # Over-relaxation factor of the non-differential trace; only 1.0 (off)
-    # is implemented in this package.
+    # Over-relaxation factor ω ∈ [1, 2) of the non-differential trace
+    # (Keinert et al. 2014): steps of ω·|f|, retreating when consecutive
+    # unbounding spheres stop overlapping; 1.0 = off.  ω > 1 needs
+    # refine_intersection.
     over_relax: float = 1.0
     trace_eps: float = 1e-6
     refine_intersection: bool = True
-    # Intersection root polisher: only 'fixed' (the reference's
-    # decreasing-rate iteration) is implemented in this package.
+    # Intersection root polisher: 'fixed' (the reference's decreasing-rate
+    # iteration) or 'newton' (guarded Newton toward the band centre ε/2);
+    # both stop in the same 0 < f ≤ ε band.
     refine: str = "fixed"
     use_extra_weight: bool = True
     extra_thresh: float = 0.05
@@ -162,8 +165,17 @@ class SphereSDF:
 
 @dataclasses.dataclass(frozen=True)
 class BoxSDF:
-    """Smooth box SDF (iquilezles.org).  Value only: its one user here is
-    the bounding-box constraint grid of ``opt/variables.box_sdf_grid``."""
+    """Smooth box SDF (iquilezles.org): ``|max(q, 0)| + min(max_k q_k, 0) -
+    smoothing`` with ``q = |x - p| - extents``.
+
+    Derivatives are analytic.  Where the JAX package takes them with
+    ``jax.grad`` they agree, but for two rules: strictly inside the sharp box
+    (every ``q_k < 0``) the JAX package's gradient is NaN (the derivative of
+    ``jnp.linalg.norm`` at 0, times 0) where this one is the derivative of
+    the max term, ``sign(x - p)`` on the axis of the largest ``q_k``; and at
+    ties (two equal largest ``q_k`` inside, a ``q_k`` or ``x_k - p_k`` of
+    exactly 0) the JAX package splits the subgradient among the tied terms
+    where this one takes the first axis (inside) or 0."""
 
     p: torch.Tensor          # (3,) center
     extents: torch.Tensor    # (3,) half-extents
@@ -175,8 +187,54 @@ class BoxSDF:
         device = resolve_device(device)
         return cls(p=_vec3(p, device), extents=_vec3(extents, device), smoothing=_vec3(smoothing, device))
 
+    def detach(self):
+        return dataclasses.replace(self, p=self.p.detach(), extents=self.extents.detach(),
+                                   smoothing=self.smoothing.detach())
+
+    @staticmethod
+    def _norm(v):
+        """|v| as ``sqrt((v0² + v1²) + v2²)``, each operation rounded apart
+        (the order the sphere-trace kernel's box follows)."""
+        return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])
+
     def eval(self, x):
         q = torch.abs(x - self.p) - self.extents
-        outside = torch.linalg.norm(torch.clamp_min(q, 0.0), dim=-1)
+        outside = self._norm(torch.clamp_min(q, 0.0))
         inside = torch.clamp_max(q.amax(dim=-1), 0.0)
         return outside + inside - self.smoothing
+
+    def _parts(self, x):
+        """Value, the sign of ``x - p``, the unit vector ``u`` of ``max(q, 0)``
+        (0 inside), its norm, and the one-hot axis of the inside term (0
+        outside)."""
+        rel = x - self.p
+        q = torch.abs(rel) - self.extents
+        qp = torch.clamp_min(q, 0.0)
+        n = self._norm(qp)
+        qmax, axis = q.max(dim=-1)
+        value = n + torch.clamp_max(qmax, 0.0) - self.smoothing
+        u = qp / torch.clamp_min(n, 1e-30)[..., None]
+        onehot = torch.nn.functional.one_hot(axis, 3).to(x.dtype) * (qmax < 0.0).to(x.dtype)[..., None]
+        return value, torch.sign(rel), u, n, q > 0.0, onehot
+
+    def eval_and_grad(self, x):
+        value, s, u, _, _, onehot = self._parts(x)
+        return value, s * (u + onehot)
+
+    def eval_grad(self, x):
+        return self.eval_and_grad(x)[1]
+
+    def eval_all(self, x):
+        """(value, grad, hessian): outside the sharp box the Hessian of
+        ``|max(q, 0)|``, ``s_i s_j (δ_ij [q_i > 0] - u_i u_j) / |max(q, 0)|``;
+        inside 0."""
+        value, s, u, n, pos, onehot = self._parts(x)
+        eye = torch.diag_embed(pos.to(x.dtype))
+        h = (eye - u[..., :, None] * u[..., None, :]) / torch.clamp_min(n, 1e-30)[..., None, None]
+        h = h * (s[..., :, None] * s[..., None, :])
+        h = torch.where((n > 0.0)[..., None, None], h, torch.zeros_like(h))
+        return value, s * (u + onehot), h
+
+    def bbox(self, expand: float = 0.05):
+        p = self.p.detach()
+        return p - 0.5 - expand, p + 0.5 + expand

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``ops/trace.py``.  Two entry points:
 
 * ``sphere_trace``      — plain intersection (primal rendering fast path),
-  including the 10-step decreasing-rate refinement.  It is the wrapper of
+  optionally over-relaxed, with the 10-step decreasing-rate or the guarded
+  Newton refinement.  It is the wrapper of
   the hand-written CUDA kernel ``csrc/sphere_trace.cu``: a CUDA tensor goes
   through the kernel (or the call raises), a CPU tensor through the kernel's
   plain version :func:`sphere_trace_plain`.
@@ -37,7 +38,7 @@ import math
 
 import torch
 
-from .sdf import GridSDF, SphereSDF, TraceParams
+from .sdf import BoxSDF, GridSDF, SphereSDF, TraceParams
 from .vecmath import (
     bbox_distance_inside_d, dot, integer_pow, nearest_axis_mask, normalize, ray_bbox_intersect,
 )
@@ -132,10 +133,16 @@ def _lane_tensor(v, like, dtype):
 
 
 def _check_trace_params(params: TraceParams):
-    if params.over_relax != 1.0:
-        raise NotImplementedError("over-relaxed sphere tracing (over_relax > 1) is not ported")
-    if params.refine_intersection and params.refine != "fixed":
-        raise NotImplementedError(f"refine='{params.refine}' is not ported (only 'fixed')")
+    """The JAX package's assertions on the trace options, as ValueErrors:
+    the retreat ``(1 - ω)·step`` is a sound recovery only for ω ∈ [1, 2),
+    and an over-relaxed hit may land inside the surface, so ω > 1 needs the
+    refinement that brings ``its_t`` back into the (0, ε] band."""
+    if not 1.0 <= params.over_relax < 2.0:
+        raise ValueError(f"over_relax must be in [1, 2), got {params.over_relax}")
+    if params.over_relax > 1.0 and not params.refine_intersection:
+        raise ValueError("over_relax > 1 requires refine_intersection")
+    if params.refine not in ("fixed", "newton"):
+        raise ValueError(f"refine must be 'fixed' or 'newton', got '{params.refine}'")
 
 
 @torch.no_grad()
@@ -149,8 +156,8 @@ def sphere_trace(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF, acti
     refinement).
 
     On a CUDA tensor the trace, its ray setup included, runs in
-    ``csrc/sphere_trace.cu`` (a grid or the analytic sphere: any other SDF
-    raises ``NotImplementedError``); on a CPU tensor in
+    ``csrc/sphere_trace.cu`` (a grid, the analytic sphere or the box: any
+    other SDF raises ``NotImplementedError``); on a CPU tensor in
     :func:`sphere_trace_plain`.  ``sphere_trace.kernel_launches`` counts the
     kernel's launches (one a call).
     """
@@ -205,8 +212,14 @@ def _kernel_operands(sdf, o, d, params: TraceParams, maxt=_INF, active=True, ref
         operands = {"sdf_kind": 1, "grid": None, "p": sdf.p.detach().contiguous(), "r": sdf.r.detach()}
         if operands["r"].shape != () or operands["r"].dtype != torch.float32:
             raise ValueError(f"the sphere's radius must be a float32 scalar, got {operands['r']}")
+    elif isinstance(sdf, BoxSDF):
+        # the half-extents and the smoothing as 4 floats
+        shape = torch.cat([sdf.extents.detach().reshape(-1), sdf.smoothing.detach().reshape(-1)])
+        if shape.shape != (4,) or shape.dtype != torch.float32:
+            raise ValueError(f"the box takes (3,) float32 extents and a float32 smoothing, got {shape}")
+        operands = {"sdf_kind": 2, "grid": None, "p": sdf.p.detach().contiguous(), "r": shape}
     else:
-        raise NotImplementedError(f"the CUDA sphere tracer takes a GridSDF or a SphereSDF, got "
+        raise NotImplementedError(f"the CUDA sphere tracer takes a GridSDF, a SphereSDF or a BoxSDF, got "
                                   f"{type(sdf).__name__}")
     if operands["p"].shape != (3,) or operands["p"].dtype != torch.float32:
         raise ValueError(f"the SDF's position must be (3,) float32, got {tuple(operands['p'].shape)} "
@@ -258,6 +271,8 @@ def _launch_sphere_trace(operands: dict, params: TraceParams):
             p.data_ptr(), r.data_ptr() if r is not None else None,
             o.data_ptr(), o.stride(0), d.data_ptr(), d.stride(0), *per_lane,
             ctypes.c_float(params.bbox_expand), ctypes.c_float(params.trace_eps), ctypes.c_float(params.step_scale),
+            # the retreat factor 1 - ω rounded to float32 as the plain version rounds it
+            ctypes.c_float(params.over_relax), ctypes.c_float(1.0 - params.over_relax), int(params.refine == "newton"),
             int(params.max_steps), int(refine_steps), its_t.data_ptr(), num_steps.data_ptr(), next_ray.data_ptr(),
             n, torch.cuda.current_stream().cuda_stream,
         )
@@ -281,6 +296,7 @@ def sphere_trace_plain(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF
     d, _, hit, _, t0, maxt, trace_eps = _ray_setup(sdf, o, d, params, maxt)
     active0 = _lane_tensor(active, o, torch.bool) & hit
     scale = params.step_scale
+    relax = params.over_relax
 
     def body(s, c):
         act, t, its_t, i = s["active"], s["t"], s["its_t"], s["i"]
@@ -293,14 +309,42 @@ def sphere_trace_plain(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF
         act = act & (t_new <= c["maxt"]) & ~intersected & (i + 1 < params.max_steps)
         return {"active": act, "t": t_new, "its_t": its_t, "i": i + 1}
 
+    def relaxed_body(s, c):
+        # Over-relaxed sphere tracing (Keinert et al. 2014): step ω·|f|; when
+        # consecutive unbounding spheres stop overlapping, the ω step
+        # overshot: retreat by (ω − 1)·step and go on at ω = 1.  A hit may
+        # land slightly inside the surface; the refinement brings it back.
+        act, t, its_t, i = s["active"], s["t"], s["its_t"], s["i"]
+        x = c["o"] + t[..., None] * c["d"]
+        f = sdf.eval(x) * scale
+        radius = f.abs()
+        omega = s["omega"]
+        fail = (omega > 1.0) & (radius + s["prev_radius"] < s["step_len"])
+        intersected = ~fail & (f < c["trace_eps"])
+        its_t = torch.where(act & intersected, t, its_t)
+        step = torch.where(fail, (1.0 - relax) * s["step_len"], radius * omega)
+        step = torch.where(intersected, torch.zeros_like(step), step)
+        t_new = torch.where(act, t + step, t)
+        # terminate on the conservative reach t + |f|, never on a retreat
+        act = act & (fail | (t + radius <= c["maxt"])) & ~intersected & (i + 1 < params.max_steps)
+        return {
+            "active": act, "t": t_new, "its_t": its_t, "i": i + 1,
+            "omega": torch.where(fail, torch.ones_like(omega), omega),
+            "prev_radius": torch.where(fail, torch.zeros_like(radius), radius),
+            "step_len": step.abs(),
+        }
+
     state = {
         "active": active0,
         "t": t0,
         "its_t": torch.full_like(t0, _INF),
         "i": torch.zeros_like(t0, dtype=torch.int32),
     }
+    if relax > 1.0:
+        state.update(omega=torch.full_like(t0, relax), prev_radius=torch.zeros_like(t0),
+                     step_len=torch.zeros_like(t0))
     consts = {"o": o.expand(d.shape), "d": d, "maxt": maxt, "trace_eps": trace_eps}
-    its_t = _masked_loop(body, state, consts)["its_t"]
+    its_t = _masked_loop(relaxed_body if relax > 1.0 else body, state, consts)["its_t"]
 
     if params.refine_intersection:
         its_t = _refine(sdf, consts["o"], d, its_t, trace_eps, params, refine_active)
@@ -308,17 +352,29 @@ def sphere_trace_plain(sdf, o, d, params: TraceParams = TraceParams(), maxt=_INF
 
 
 def _refine(sdf, o, d, its_t, trace_eps, params: TraceParams, refine_active=True):
-    """Intersection refinement into the (0, ε] shell: the reference's
-    decreasing-rate iteration ``t += f·10/(10+i)``.  Only hit lanes refine,
-    and a lane stops once it converges into the shell."""
-    if params.refine != "fixed":
-        raise NotImplementedError(f"refine='{params.refine}' is not ported (only 'fixed')")
+    """Intersection refinement into the (0, ε] shell.  Only hit lanes refine,
+    and a lane stops once it converges into the shell (after one more step).
+
+    * ``'fixed'``: the reference's decreasing-rate iteration
+      ``t += f·10/(10+i)``;
+    * ``'newton'``: guarded Newton toward the band centre ε/2,
+      ``t += (f − ε/2)·min(−1/(d·∇f), 4)`` where the slope ``d·∇f`` is below
+      −0.25, else at the fixed rate."""
+    newton = params.refine == "newton"
 
     def body(s, c):
         refining, t, i = s["active"], s["t"], s["i"]
         x = c["o"] + t[..., None] * c["d"]
-        f = sdf.eval(x) * params.step_scale
-        step = f * (10.0 / (10.0 + i))
+        rate_fb = 10.0 / (10.0 + i)
+        if newton:
+            f, g = sdf.eval_and_grad(x)
+            f = f * params.step_scale
+            slope = dot(g, c["d"]) * params.step_scale
+            rate = torch.where(slope < -0.25, torch.clamp_max(-1.0 / slope, 4.0), rate_fb)
+            step = (f - 0.5 * c["trace_eps"]) * rate
+        else:
+            f = sdf.eval(x) * params.step_scale
+            step = f * rate_fb
         t_new = torch.where(refining, t + step, t)
         refining = refining & ((f <= 0) | (f > c["trace_eps"])) & (i + 1 < params.refine_steps)
         return {"active": refining, "t": t_new, "i": i + 1}

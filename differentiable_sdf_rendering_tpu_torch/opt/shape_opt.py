@@ -43,6 +43,7 @@ from ..models.scenes_zoo import scene_rig_full, target_sdf
 from ..ops.film import BORDER, develop
 from ..ops.initializers import upsample_sdf, upsample_volume
 from ..ops.sdf import GridSDF
+from ..ops.warp_conv import ConvWarpConfig
 from ..utils.io import dump_metadata, read_vol, write_vol
 from . import losses as losses_mod
 from .adam import adam_init, adam_step
@@ -227,7 +228,7 @@ def load_checkpoint(output_dir: str, iteration, specs, device=None):
 
 def render_configs(method_cfg: BaseConfig):
     """The training step's ``(cfg_primal, cfg_grad)`` render configs of a
-    method: its integrator, warp and trace settings at ``spp`` for the
+    method: its integrator, warp (or conv) and trace settings at ``spp`` for the
     gradient render and ``spp·primal_spp_mult`` for the primal one."""
     cfg_grad = RenderConfig(
         integrator=method_cfg.integrator,
@@ -236,6 +237,8 @@ def render_configs(method_cfg: BaseConfig):
         trace=method_cfg.trace_params(),
         use_warp=method_cfg.warp_kind != "dummy",
         warp_kind=method_cfg.warp_kind,
+        conv=ConvWarpConfig(n_aux_rays=method_cfg.n_aux_rays, kappa=method_cfg.conv_kappa,
+                            power=method_cfg.conv_power),
     )
     return dataclasses.replace(cfg_grad, spp=method_cfg.spp * method_cfg.primal_spp_mult), cfg_grad
 
@@ -358,7 +361,8 @@ def optimize_shape(
         total_time = time.time() - t_start
         if output_dir:
             _write_params(output_dir, ema, "final")
-            dump_metadata(method_cfg, opt_cfg, {"total_time": total_time, "loss_values": loss_values},
+            dump_metadata(method_cfg, opt_cfg,
+                          {"total_time": total_time, "loss_values": loss_values, "iter_seconds": iter_seconds},
                           os.path.join(output_dir, "metadata.json"))
     final_scene = Scene(sdf=GridSDF.create(params["sdf"]), bsdf=bsdf, emitter=emitter, cameras=cams_full,
                         **extras)

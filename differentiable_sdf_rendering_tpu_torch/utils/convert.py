@@ -9,6 +9,8 @@ scene dict:
   ``sdf``       (Z, Y, X) f32 grid            ``sdf_p``  (3,) f32 (optional)
   ``cam_origin`` (V, 3)  ``cam_rot`` (V, 3, 3)  ``cam_tan_half_fov`` (V,)
   ``cam_resx``, ``cam_resy``  ints
+  or, with ``cam_kind`` = ``"spherical"``, ``cam_origin`` (3,), ``cam_resx``,
+  ``cam_resy`` and ``cam_uniform`` (bool)
   BSDF, ``bsdf`` = ``"diffuse"`` (the default when absent) or ``"principled"``:
     diffuse:    ``albedo`` (3,) f32 [+ ``albedo_tex`` (Z, Y, X, 3)]
     principled: ``base_color`` (3,), ``roughness`` () f32, ``specular`` float
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models.bsdf import DiffuseBSDF, PrincipledBSDF
-from ..models.camera import PerspectiveCamera
+from ..models.camera import PerspectiveCamera, SphericalCamera
 from ..models.emitter import ConstantEmitter, GridEnvmap
 from ..models.scene import Scene
 from ..ops.sdf import GridSDF
@@ -79,15 +81,30 @@ def _bsdf_to_numpy(bsdf) -> dict:
     return d
 
 
-def scene_from_numpy(d: dict, device) -> Scene:
-    sdf = GridSDF.create(_t(d["sdf"], device), p=d.get("sdf_p"))
-    cams = PerspectiveCamera(
+def _cameras_from_numpy(d: dict, device):
+    if d.get("cam_kind", "perspective") == "spherical":
+        return SphericalCamera(origin=_t(d["cam_origin"], device), resx=int(d["cam_resx"]), resy=int(d["cam_resy"]),
+                               uniform=bool(d["cam_uniform"]))
+    return PerspectiveCamera(
         origin=_t(d["cam_origin"], device),
         rot=_t(d["cam_rot"], device),
         tan_half_fov=_t(d["cam_tan_half_fov"], device),
         resx=int(d["cam_resx"]),
         resy=int(d["cam_resy"]),
     )
+
+
+def _cameras_to_numpy(c) -> dict:
+    if isinstance(c, SphericalCamera):
+        return {"cam_kind": "spherical", "cam_origin": _n(c.origin), "cam_resx": c.resx, "cam_resy": c.resy,
+                "cam_uniform": c.uniform}
+    return {"cam_origin": _n(c.origin), "cam_rot": _n(c.rot), "cam_tan_half_fov": _n(c.tan_half_fov),
+            "cam_resx": c.resx, "cam_resy": c.resy}
+
+
+def scene_from_numpy(d: dict, device) -> Scene:
+    sdf = GridSDF.create(_t(d["sdf"], device), p=d.get("sdf_p"))
+    cams = _cameras_from_numpy(d, device)
     if "envmap_image" in d:
         if "envmap_alias_idx" in d:
             img = _t(d["envmap_image"], device)
@@ -106,15 +123,10 @@ def scene_from_numpy(d: dict, device) -> Scene:
 
 
 def scene_to_numpy(scene: Scene) -> dict:
-    c = scene.cameras
     d = {
         "sdf": _n(scene.sdf.data),
         "sdf_p": _n(scene.sdf.p),
-        "cam_origin": _n(c.origin),
-        "cam_rot": _n(c.rot),
-        "cam_tan_half_fov": _n(c.tan_half_fov),
-        "cam_resx": c.resx,
-        "cam_resy": c.resy,
+        **_cameras_to_numpy(scene.cameras),
         **_bsdf_to_numpy(scene.bsdf),
     }
     if isinstance(scene.emitter, GridEnvmap):

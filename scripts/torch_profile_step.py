@@ -5,13 +5,15 @@
                                           [--out report.json]
     python3 scripts/torch_profile_step.py --scene torus-shadow --optconfig torus-shadow-1 --res 128
     python3 scripts/torch_profile_step.py --method warpprb
+    python3 scripts/torch_profile_step.py --method conv
     python3 scripts/torch_profile_step.py --scene torus-shadow --optconfig torus-shadow-1 --res 128 \
         --method warpprb --no-profile
 
 Builds the ``--optconfig`` / ``--method`` training step of ``optimize_shape``
 at the config's published widths (its final film: 128² for ``no-tex-12``,
 256² for ``torus-shadow-1``; the method's primal and gradient spp, 256 + 64,
-and its integrator: ``warpprb`` is PRB at depth 4) on a ``--res``³ sphere
+and its integrator and warp: ``warpprb`` is PRB at depth 4, ``conv`` the
+convolution-warp baseline with 16 auxiliary rays) on a ``--res``³ sphere
 grid against the procedural references of ``--scene`` under its rig (the
 floor mesh and vMF sun of ``torus-shadow``; rendered with the direct
 integrator, as ``optimize_shape`` renders them), runs the loss and gradient
@@ -42,7 +44,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="bunny")
     ap.add_argument("--optconfig", default="no-tex-12")
-    ap.add_argument("--method", default="warp", help="gradient method config, e.g. warp or warpprb")
+    ap.add_argument("--method", default="warp", help="gradient method config, e.g. warp, warpprb or conv")
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
     ap.add_argument("--no-profile", action="store_true", help="skip torch.profiler")

@@ -28,7 +28,7 @@ from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import scene_rig
 from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
 from differentiable_sdf_rendering_tpu_torch.opt.shape_opt import load_checkpoint
 from differentiable_sdf_rendering_tpu_torch.utils import video
-from torch_port_helpers import to_np
+from torch_port_helpers import JIT_LEVEL0, to_np
 
 TINY = ["--sdf_res=16", "--n_sensors=2", "--batch_size=2", "--resx=8", "--resy=8", "--upsample_iter=()",
         "--spp=2", "--primal_spp_mult=1"]
@@ -81,7 +81,7 @@ def test_optimize_then_turntable_match_jax(tmp_path, monkeypatch):
         alias_idx=jnp.asarray(to_np(e.alias_idx), jnp.int32))
     cam = jturntable_cameras(1, resx=8, resy=8).view(0)
     render = jax.jit(lambda sc, cm: jrender_chunked(sc, seed=0, cfg=JRenderConfig(spp=2), mode="primal",
-                                                    camera=cm, n_chunks=1))
+                                                    camera=cm, n_chunks=1), **JIT_LEVEL0)
 
     def jax_frame(emitter):
         scene = JScene.create(ema, bsdf=bsdf, emitter=emitter, cameras=jregular_cameras(1))

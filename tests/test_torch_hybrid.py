@@ -11,6 +11,8 @@ budget of the new cases."""
 
 import dataclasses
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,7 @@ from differentiable_sdf_rendering_tpu_torch.models.camera import regular_cameras
 from differentiable_sdf_rendering_tpu_torch.models.scene import Scene
 from differentiable_sdf_rendering_tpu_torch.ops import mesh_intersect as tmesh
 from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
-from torch_port_helpers import t, to_np
+from torch_port_helpers import JIT_LEVEL0, t, to_np
 
 RES = FILM = 16
 
@@ -80,7 +82,7 @@ def test_hybrid_render_matches_jax(case):
     cot = np.random.default_rng(0).normal(size=(FILM, FILM, 4)).astype(np.float32)
     cfg_j = JRenderConfig(spp=2, **fields)
 
-    @jax.jit
+    @functools.partial(jax.jit, **JIT_LEVEL0)
     def jax_side(data, cotangent):
         primal = jrender(sj, 0, seed=3, cfg=cfg_j, mode="primal")
         img, vjp = jax.vjp(lambda x: jrender(sj.replace(sdf=JGridSDF.create(x)), 0, seed=5, cfg=cfg_j, mode="grad"),

@@ -1,5 +1,6 @@
 """The port imports torch only: no jax, no flax, nothing of the JAX package
-(its modules, its two command-line entry points and ``chip_smoke.py``)."""
+(its modules, its two command-line entry points, ``chip_smoke.py`` and its
+``scripts/torch_*.py``)."""
 
 import os
 import re
@@ -36,6 +37,10 @@ def _py_files():
                 yield os.path.join(base, f)
     for name in ("chip_smoke.py", "optimize_torch.py", "render_turntable_torch.py"):
         yield os.path.join(ROOT, name)
+    scripts = os.path.join(ROOT, "scripts")
+    for f in os.listdir(scripts):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_imports_with_jax_blocked():

@@ -48,7 +48,7 @@ from differentiable_sdf_rendering_tpu_torch.ops.warp import WarpConfig
 from differentiable_sdf_rendering_tpu_torch.opt import configs as tconfigs, opt_configs as topt_configs
 from differentiable_sdf_rendering_tpu_torch.opt import shape_opt
 from test_torch_hybrid import _scenes as _hybrid_scenes
-from torch_port_helpers import t, to_np
+from torch_port_helpers import JIT_LEVEL0, t, to_np
 
 RES = 16
 PRB = "sdf_prb_reparam"
@@ -150,7 +150,7 @@ def test_prb_render_matches_jax(case):
     cfg_j, cfg_t = _configs(fields)
     cot = np.random.default_rng(0).normal(size=(film, film, 4)).astype(np.float32)
 
-    @jax.jit
+    @functools.partial(jax.jit, **JIT_LEVEL0)
     def jax_side(data, cotangent):
         primal = jrender(sj.replace(sdf=JGridSDF.create(data)), 0, seed=5, cfg=cfg_j, mode="primal")
         img, vjp = jax.vjp(lambda x: jrender(sj.replace(sdf=JGridSDF.create(x)), 0, seed=5, cfg=cfg_j, mode="grad"),
@@ -384,10 +384,10 @@ def test_prb_methods_through_the_cli(tmp_path, monkeypatch):
 
 
 def test_unported_methods_raise():
-    """``fd`` and the ``conv*`` methods stay refused (PRB with the conv warp
-    is refused by test_torch_render.py::test_unported_paths_raise)."""
+    """``fd`` stays refused (PRB with the conv warp is refused by
+    test_torch_render.py::test_unported_paths_raise)."""
     opt_cfg = topt_configs.SdfConfig(upsample_iter=(), n_sensors=1, resx=8, resy=8, sdf_res=8)
-    for name in ("fd", "conv", "conv4"):
+    for name in ("fd",):
         with pytest.raises(NotImplementedError):
             shape_opt.optimize_shape("cubes", opt_cfg, tconfigs.get_config(name), n_iter=1, ref_spp=1,
                                      target_res=8, verbose=False, device="cpu")

@@ -10,7 +10,7 @@ import pytest
 from differentiable_sdf_rendering_tpu.ops import redistance as jrd
 from differentiable_sdf_rendering_tpu.ops.pallas_redistance import redistance_pallas
 from differentiable_sdf_rendering_tpu_torch.ops import redistance as trd
-from torch_port_helpers import perturbed_sphere, t, to_np
+from torch_port_helpers import JIT_LEVEL0, perturbed_sphere, t, to_np
 
 # On power-of-two grids the JAX side is exact between its own two paths
 # (1/h² is a power of two, so the Pallas and XLA formulations round alike).
@@ -32,7 +32,7 @@ def _non_sdf(res):
 def test_interface_init(shape):
     phi = perturbed_sphere(shape, seed=1)
     h = tuple(1.0 / n for n in shape)
-    dj, fj = jrd._interface_init(jnp.asarray(phi), h)
+    dj, fj = jax.jit(jrd._interface_init, static_argnums=1, **JIT_LEVEL0)(jnp.asarray(phi), h)
     dt, ft = trd._interface_init(t(phi), trd._spacing(shape))
     np.testing.assert_array_equal(to_np(ft), np.asarray(fj))
     np.testing.assert_allclose(to_np(dt), np.asarray(dj), rtol=1e-6, atol=ATOL)
@@ -45,7 +45,7 @@ def test_godunov_update(shape):
     u[rng.random(shape) < 0.3] = 1e5  # unreached voxels
     u = u.astype(np.float32)
     h = tuple(1.0 / n for n in shape)
-    want = np.asarray(jrd._godunov_update(jnp.asarray(u), h))
+    want = np.asarray(jax.jit(jrd._godunov_update, static_argnums=1, **JIT_LEVEL0)(jnp.asarray(u), h))
     got = to_np(trd._godunov_update(t(u), trd._spacing(shape)))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=ATOL)
 

@@ -8,6 +8,8 @@ op by op (see ``jax_bsdf_results``)."""
 
 import dataclasses
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,7 @@ from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import target_sdf
 from differentiable_sdf_rendering_tpu_torch.ops.interaction import SurfaceInteraction
 from differentiable_sdf_rendering_tpu_torch.opt import variables as tvars
 from differentiable_sdf_rendering_tpu_torch.utils import convert
-from torch_port_helpers import jax_scene_to_numpy, t, to_np
+from torch_port_helpers import JIT_LEVEL0, jax_scene_to_numpy, t, to_np
 
 N = 256  # shading points of the BSDF cases
 BSDF_KINDS = ("diffuse_tex", "principled", "principled_tex")
@@ -82,14 +84,15 @@ def jax_bsdf_results():
     """The inputs and, per BSDF kind, the JAX package's ``eval``,
     ``eval_pdf`` and ``sample``, run op by op, and the VJP of ``eval`` to
     the shading points and the textures, under ``jax.jit``.  The values are
-    not taken from the fused program: it contracts multiply-adds, and GGX's
-    peak at roughness 0.3 (α² = 0.0081) turns that rounding into 1.2e-5 of a
-    sample weight (the float64 value lies between the two), while op by op
-    the JAX package and the port round alike."""
+    not taken from the compiled program: it rounds its multiply-adds apart
+    from the port (even at backend optimisation level 0), and GGX's peak at
+    roughness 0.3 (α² = 0.0081) turns that rounding into 1.2e-5 of a sample
+    weight (the float64 value lies between the two), while op by op the JAX
+    package and the port round alike."""
     x = _bsdf_inputs()
     arrs = {k: jnp.asarray(v) for k, v in x.items()}
 
-    @jax.jit
+    @functools.partial(jax.jit, **JIT_LEVEL0)
     def vjps(arrs):
         out = {}
         for kind in BSDF_KINDS:
@@ -262,7 +265,7 @@ def test_grad_mode_vjp_to_sdf_and_textures(principled_scenes):
     sj, st = principled_scenes
     cot = np.random.default_rng(22).normal(size=(16, 16, 4)).astype(np.float32)
 
-    @jax.jit
+    @functools.partial(jax.jit, **JIT_LEVEL0)
     def image_and_vjp(sdf, albedo, rough, cotangent):
         def fj(s, a, r):
             scene = sj.replace(sdf=JGridSDF.create(s), bsdf=sj.bsdf.replace(base_color_tex=a, roughness_tex=r))

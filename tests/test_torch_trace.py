@@ -6,6 +6,9 @@ rays with a finite extent, inactive lanes and lanes without refinement.
 ``csrc/sphere_trace.cu`` (``sphere_trace_plain``); the kernel itself is held
 against that plain version on the card by ``chip_smoke.py``."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ from differentiable_sdf_rendering_tpu.ops.redistance import redistance as jredis
 from differentiable_sdf_rendering_tpu.ops.sdf import GridSDF as JGridSDF, TraceParams as JTraceParams
 from differentiable_sdf_rendering_tpu_torch.ops import trace as ttrace
 from differentiable_sdf_rendering_tpu_torch.ops.sdf import BoxSDF, GridSDF, SphereSDF, TraceParams
-from torch_port_helpers import perturbed_sphere, t, to_np
+from torch_port_helpers import JIT_LEVEL0, perturbed_sphere, t, to_np
 
 
 def _rays(rng, n):
@@ -41,7 +44,7 @@ def _rays(rng, n):
 @pytest.fixture(scope="module")
 def case():
     rng = np.random.default_rng(0)
-    grid = np.asarray(jredistance(jnp.asarray(perturbed_sphere(16, seed=7, sigma=0.02))))
+    grid = np.asarray(jax.jit(jredistance, **JIT_LEVEL0)(jnp.asarray(perturbed_sphere(16, seed=7, sigma=0.02))))
     o, d = _rays(rng, 512)
     maxt = np.full(512, np.inf, np.float32)
     maxt[::7] = rng.uniform(0.5, 2.5, size=maxt[::7].shape)
@@ -57,10 +60,9 @@ def masked(case):
     grid, o, d, maxt = case
     active = np.arange(512) % 5 != 4
     refine = np.arange(512) % 3 != 0
-    want = np.asarray(jtrace.sphere_trace(
-        JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), JTraceParams(),
-        maxt=jnp.asarray(maxt), active=jnp.asarray(active), refine_active=jnp.asarray(refine),
-    ))
+    want = np.asarray(jax.jit(lambda g, o, d, m, a, r: jtrace.sphere_trace(
+        JGridSDF.create(g), o, d, JTraceParams(), maxt=m, active=a, refine_active=r,
+    ), **JIT_LEVEL0)(grid, o, d, maxt, active, refine))
     args = (GridSDF.create(t(grid)), t(o), t(d), TraceParams())
     kw = dict(maxt=t(maxt), active=torch.tensor(active), refine_active=torch.tensor(refine))
     got = to_np(ttrace.sphere_trace_plain(*args, **kw))
@@ -115,9 +117,8 @@ def test_sphere_trace_plain_lane_groups(case, masked, group):
 
 def test_sphere_trace_warp(case):
     grid, o, d, maxt = case
-    rj = jtrace.sphere_trace_warp(
-        JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), JTraceParams(), maxt=jnp.asarray(maxt)
-    )
+    rj = jax.jit(lambda g, o, d, m: jtrace.sphere_trace_warp(JGridSDF.create(g), o, d, JTraceParams(), maxt=m),
+                 **JIT_LEVEL0)(grid, o, d, maxt)
     rt = ttrace.sphere_trace_warp(GridSDF.create(t(grid)), t(o), t(d), TraceParams(), maxt=t(maxt))
     hit = np.isfinite(np.asarray(rj.its_t))
     np.testing.assert_array_equal(np.isfinite(to_np(rt.its_t)), hit)
@@ -169,19 +170,20 @@ def test_compaction_is_lane_reordering(case):
 
 
 def test_unported_options_raise(case):
+    """What still raises: over-relaxation outside [1, 2) and without the
+    refinement (the JAX package's assertions), an unknown refinement, and
+    operands the kernel cannot read."""
     grid, o, d, _ = case
     sdf = GridSDF.create(t(grid))
+    for bad in (dict(over_relax=2.0), dict(over_relax=0.9), dict(over_relax=1.4, refine_intersection=False),
+                dict(refine="bisect")):
+        with pytest.raises(ValueError):
+            ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(**bad))
+        # the kernel's operand setup (reached on a CUDA tensor) refuses them too
+        with pytest.raises(ValueError):
+            ttrace._kernel_operands(sdf, t(o), t(d), TraceParams(**bad))
     with pytest.raises(NotImplementedError):
-        ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(over_relax=1.4))
-    with pytest.raises(NotImplementedError):
-        ttrace.sphere_trace(sdf, t(o), t(d), TraceParams(refine="newton"))
-    # the kernel's operand setup (reached on a CUDA tensor) refuses the same
-    # options, and any SDF but a grid or the analytic sphere
-    with pytest.raises(NotImplementedError):
-        ttrace._kernel_operands(sdf, t(o), t(d), TraceParams(refine="newton"))
-    with pytest.raises(NotImplementedError):
-        ttrace._kernel_operands(BoxSDF.create(device="cpu"), t(o), t(d), TraceParams())
-    # and operands the kernel cannot read
+        ttrace._kernel_operands(object(), t(o), t(d), TraceParams())
     for data in (t(grid).double(), t(grid).transpose(0, 2)):
         with pytest.raises(ValueError):
             ttrace._kernel_operands(GridSDF(data=data, p=torch.zeros(3)), t(o), t(d), TraceParams())
@@ -266,6 +268,22 @@ def test_kernel_operands_sphere(case):
     np.testing.assert_allclose(its[outside], want[outside], atol=1e-5)
 
 
+def test_kernel_operands_box(case):
+    """The box goes to the kernel as its centre and, as 4 floats, its
+    half-extents and smoothing (``sdf_kind`` 2; the kernel computes its box as
+    ``BoxSDF.bbox`` does)."""
+    _, o, d, _ = case
+    box = BoxSDF.create(p=(0.5, 0.45, 0.55), extents=(0.3, 0.2, 0.25), smoothing=0.02, device="cpu")
+    ops, lead = ttrace._kernel_operands(box, t(o), t(d), TraceParams(refine="newton"))
+    assert lead == (512,) and ops["sdf_kind"] == 2 and ops["grid"] is None
+    assert ops["p"].data_ptr() == box.p.data_ptr()
+    np.testing.assert_array_equal(to_np(ops["r"]), np.array([0.3, 0.2, 0.25, 0.02], np.float32))
+    lo, hi = box.bbox(0.05)
+    p = to_np(box.p)
+    np.testing.assert_array_equal(to_np(lo), (p - np.float32(0.5)) - np.float32(0.05))
+    np.testing.assert_array_equal(to_np(hi), (p + np.float32(0.5)) + np.float32(0.05))
+
+
 def test_launch_arguments_match_c_signature(case, monkeypatch):
     """The wrapper's call into ``sphere_trace_run``, run against a stand-in
     for the library (the kernel itself runs only on the card): as many
@@ -306,11 +324,18 @@ def test_launch_arguments_match_c_signature(case, monkeypatch):
     assert args[8] == 0 and args[10] == 3  # broadcast origin, per-lane directions
     assert args[11] is not None and args[12] == 1  # per-lane maxt, stride 1
     assert args[14] is None and args[16] == 1  # scalar active = True
-    assert args[19] == 1 and args[23] == 192 and args[24] == 10 and args[-2] == 512  # refinement on
+    assert args[19] == 1 and args[26] == 192 and args[27] == 10 and args[-2] == 512  # refinement on
+    assert args[23].value == 1.0 and args[24].value == 0.0 and args[25] == 0  # w = 1, fixed rate
     sphere = SphereSDF.create(device="cpu")
     ttrace._sphere_trace_kernel(sphere, t(o), t(d), TraceParams(refine_intersection=False))
     args = calls[-1]
-    assert args[0] == 1 and args[1] is None and args[6] == sphere.r.data_ptr() and args[24] == 0  # no refinement
+    assert args[0] == 1 and args[1] is None and args[6] == sphere.r.data_ptr() and args[27] == 0  # no refinement
+    # the options: w and the retreat factor 1 - w as float32, Newton as a flag
+    box = BoxSDF.create(p=(0.5, 0.5, 0.5), device="cpu")
+    ttrace._sphere_trace_kernel(box, t(o), t(d), TraceParams(over_relax=1.4, refine="newton"))
+    args = calls[-1]
+    assert args[0] == 2 and args[1] is None and args[25] == 1
+    assert args[23].value == np.float32(1.4) and args[24].value == np.float32(1.0 - 1.4)
 
 
 def test_chip_smoke_trace_bound_charges_active_rays():
@@ -329,3 +354,113 @@ def test_chip_smoke_trace_bound_charges_active_rays():
     assert chip_smoke.trace_bytes(sdf, o, d, {"active": True}) == grid + n * (12 + 12) + n * 4
     assert chip_smoke.trace_bytes(sdf, o, d, {"active": active, "maxt": maxt}) == grid + 7 * (12 + 12 + 4) + n + n * 4
     assert chip_smoke.trace_bytes(sdf, o[:1].expand(n, 3), d, {"active": active}) == grid + 12 + 7 * 12 + n + n * 4
+
+
+# The trace options: over-relaxation (ω), Newton refinement and the box SDF.
+_OPTION_CASES = {
+    "grid": [dict(over_relax=1.4), dict(over_relax=1.6), dict(refine="newton")],
+    "wall": [dict(over_relax=1.6)],
+    "box": [dict(), dict(refine="newton")],
+}
+_BOX = dict(p=(0.5, 0.5, 0.5), extents=(0.3, 0.2, 0.25), smoothing=0.02)
+
+
+def _wall_grid():
+    """The bbox-exit case of the JAX package's tests/test_trace.py: a 32³ wall
+    whose surface is the plane z = 0.9, near the far face of the box."""
+    from differentiable_sdf_rendering_tpu.ops.initializers import voxel_centers
+
+    return np.asarray(jax.jit(lambda: jredistance((0.9 - voxel_centers(32)[..., 2]) * -1.0), **JIT_LEVEL0)())
+
+
+@pytest.fixture(scope="module")
+def option_traces(case):
+    """Every option case of ``_OPTION_CASES`` traced by the JAX package (one
+    jitted program for all) and by the port's plain version.  The wall takes
+    the JAX test's ray (from z = -0.04 along +z: an ω step overshoots the box
+    exit while the surface lies before it) and 63 more rays from below the
+    box at small angles; the grid and the box the rays of ``case`` with its
+    finite ``maxt`` lanes."""
+    from differentiable_sdf_rendering_tpu.ops.sdf import BoxSDF as JBoxSDF
+
+    grid, o, d, maxt = case
+    rng = np.random.default_rng(8)
+    wo = np.concatenate([[[0.5, 0.5, -0.04]], rng.uniform([0.1, 0.1, -0.5], [0.9, 0.9, -0.05], (63, 3))])
+    wd = np.concatenate([[[0.0, 0.0, 1.0]], rng.normal([0.0, 0.0, 1.0], 0.3, (63, 3))])
+    wd /= np.linalg.norm(wd, axis=-1, keepdims=True)
+    inputs = {"grid": (grid, o, d, maxt), "wall": (_wall_grid(), wo.astype(np.float32), wd.astype(np.float32),
+                                                   np.full(64, np.inf, np.float32)), "box": (None, o, d, maxt)}
+
+    def sdf_j(name, g):
+        return JBoxSDF.create(**_BOX) if name == "box" else JGridSDF.create(g)
+
+    @functools.partial(jax.jit, **JIT_LEVEL0)
+    def traces(args):
+        return {name: [jtrace.sphere_trace(sdf_j(name, g), o_, d_, JTraceParams(**kw), maxt=m)
+                       for kw in _OPTION_CASES[name]] for name, (g, o_, d_, m) in args.items()}
+
+    want = jax.tree_util.tree_map(np.asarray, traces({k: tuple(None if x is None else jnp.asarray(x) for x in v)
+                                                      for k, v in inputs.items()}))
+    got = {}
+    for name, (g, o_, d_, m) in inputs.items():
+        sdf = BoxSDF.create(**_BOX, device="cpu") if name == "box" else GridSDF.create(t(g))
+        got[name] = [to_np(ttrace.sphere_trace(sdf, t(o_), t(d_), TraceParams(**kw), maxt=t(m)))
+                     for kw in _OPTION_CASES[name]]
+    return inputs, want, got
+
+
+@pytest.mark.parametrize("name,k", [(n, k) for n, cases in _OPTION_CASES.items() for k in range(len(cases))])
+def test_trace_options_match_jax(option_traces, name, k):
+    """The plain version against the JAX package under each option: hit bits
+    equal, ``its_t`` within 1e-5.  Newton on the box leaves out the rays
+    that start inside the box (f < 0 from t = 0): there the JAX package's
+    gradient of the box is NaN (``jnp.linalg.norm``'s derivative at 0), so
+    its Newton step falls back to the fixed rate, while the port's analytic
+    gradient takes the Newton step (``ops/sdf.py::BoxSDF``)."""
+    inputs, want, got = option_traces
+    w, g = want[name][k], got[name][k]
+    sel = np.ones(w.shape, bool)
+    if name == "box" and _OPTION_CASES[name][k].get("refine") == "newton":
+        o = inputs[name][1]
+        sel = ~np.all(np.abs(o - 0.5) <= np.array(_BOX["extents"]) + _BOX["smoothing"], axis=-1)
+        assert (~sel).sum() >= 1
+    hit = np.isfinite(w[sel])
+    assert 5 < hit.sum() and (name == "wall" or hit.sum() < sel.sum())
+    np.testing.assert_array_equal(np.isfinite(g[sel]), hit)
+    np.testing.assert_allclose(g[sel][hit], w[sel][hit], rtol=0, atol=1e-5)
+    if name == "wall":  # the JAX test's ray is not taken for a miss
+        assert np.isfinite(g[0])
+
+
+def test_box_sdf_matches_jax():
+    """``BoxSDF``'s value, gradient, Hessian and bbox against the JAX package
+    at points away from its ties (the tie rules differ: ``BoxSDF``'s
+    docstring) and outside the sharp box, where the JAX package's gradient
+    is defined; inside, the port's gradient is the max term's."""
+    from differentiable_sdf_rendering_tpu.ops.sdf import BoxSDF as JBoxSDF
+
+    rng = np.random.default_rng(5)
+    x = (0.5 + rng.uniform(-0.48, 0.48, size=(2048, 3))).astype(np.float32)
+    jb, tb = JBoxSDF.create(**_BOX), BoxSDF.create(**_BOX, device="cpu")
+    q = np.abs(x - 0.5) - np.array(_BOX["extents"], np.float32)
+    qs = np.sort(q, axis=-1)
+    outside = (q > 1e-4).any(-1) & (np.abs(q) > 1e-4).all(-1)
+    inside = (q < -1e-4).all(-1) & (qs[:, 2] - qs[:, 1] > 1e-4)
+    assert outside.sum() > 500 and inside.sum() > 100
+    vj, gj, hj = (np.asarray(a) for a in jax.jit(jb.eval_all)(jnp.asarray(x)))
+    vt, gt, ht = (to_np(a) for a in tb.eval_all(t(x)))
+    np.testing.assert_allclose(vt, vj, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(to_np(tb.eval(t(x))), vj, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(gt[outside], gj[outside], rtol=1e-5, atol=1e-6)
+    # the Hessian (I − u uᵀ)/|max(q, 0)| grows without bound near the sharp
+    # box: relative to the largest entry
+    np.testing.assert_allclose(ht[outside], hj[outside], rtol=1e-4, atol=1e-5 * np.abs(hj[outside]).max())
+    for got in (tb.eval_and_grad(t(x))[1], tb.eval_grad(t(x))):
+        np.testing.assert_array_equal(to_np(got), gt)
+    # inside: JAX's gradient is NaN, the port's a unit axis with the sign of x − p
+    assert np.isnan(gj[inside]).all()
+    axis = np.argmax(q[inside], -1)
+    np.testing.assert_array_equal(np.abs(gt[inside]), np.eye(3, dtype=np.float32)[axis])
+    np.testing.assert_array_equal(ht[inside], 0.0)
+    for got, want in zip(tb.bbox(0.05), jb.bbox(0.05)):
+        np.testing.assert_array_equal(to_np(got), np.asarray(want))

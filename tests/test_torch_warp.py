@@ -15,7 +15,7 @@ from differentiable_sdf_rendering_tpu_torch.ops import interaction as tint
 from differentiable_sdf_rendering_tpu_torch.ops import warp as twarp
 from differentiable_sdf_rendering_tpu_torch.ops.sdf import GridSDF
 from test_torch_trace import _rays
-from torch_port_helpers import perturbed_sphere, t, to_np
+from torch_port_helpers import JIT_LEVEL0, perturbed_sphere, t, to_np
 
 RTOL, ATOL = 1e-4, 1e-6
 
@@ -23,7 +23,7 @@ RTOL, ATOL = 1e-4, 1e-6
 @pytest.fixture(scope="module")
 def case():
     rng = np.random.default_rng(1)
-    grid = np.asarray(jredistance(jnp.asarray(perturbed_sphere(16, seed=8, sigma=0.02))))
+    grid = np.asarray(jax.jit(jredistance, **JIT_LEVEL0)(jnp.asarray(perturbed_sphere(16, seed=8, sigma=0.02))))
     o, d = _rays(rng, 256)
     return grid, o, d
 
@@ -34,7 +34,8 @@ def its(case):
     from differentiable_sdf_rendering_tpu.ops.trace import sphere_trace
 
     grid, o, d = case
-    return np.asarray(jax.jit(lambda g: sphere_trace(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)))(grid))
+    return np.asarray(jax.jit(lambda g: sphere_trace(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)),
+                              **JIT_LEVEL0)(grid))
 
 
 def test_warp_config_defaults_equal():
@@ -54,7 +55,7 @@ def test_reparameterize_values_and_grid_vjp(case):
     c_d = rng.normal(size=d.shape).astype(np.float32)
     c_det = rng.normal(size=d.shape[0]).astype(np.float32)
     # one XLA program (jit) instead of one compilation per primitive
-    (_, (its_j, d1_j, det_j)), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True))(jnp.asarray(grid))
+    (_, (its_j, d1_j, det_j)), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True), **JIT_LEVEL0)(jnp.asarray(grid))
 
     data = t(grid).requires_grad_(True)
     its_t, d1, det = twarp.reparameterize(GridSDF.create(data), t(o), t(d))
@@ -77,7 +78,8 @@ def test_warp_eval_divergence_and_vjp(case):
     grid, o, d = case
     from differentiable_sdf_rendering_tpu.ops.trace import sphere_trace_warp
 
-    res = jax.jit(lambda g: sphere_trace_warp(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)))(jnp.asarray(grid))
+    res = jax.jit(lambda g: sphere_trace_warp(JGridSDF.create(g), jnp.asarray(o), jnp.asarray(d)),
+                  **JIT_LEVEL0)(jnp.asarray(grid))
     wt = np.asarray(res.warp_t)
     x = o + np.where(np.isfinite(wt), wt, 0.0)[:, None] * d
     args = dict(t=wt, dt_dx=np.asarray(res.warp_t_d), mult=np.asarray(res.warp_weight),
@@ -94,7 +96,7 @@ def test_warp_eval_divergence_and_vjp(case):
         )
         return jnp.sum(warp * c_w) + jnp.sum(div * c_div), div
 
-    (_, div_j), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True))(jnp.asarray(grid))
+    (_, div_j), g_j = jax.jit(jax.value_and_grad(fj, has_aux=True), **JIT_LEVEL0)(jnp.asarray(grid))
     data = t(grid).requires_grad_(True)
     warp, div = twarp.warp_eval(
         GridSDF.create(data), t(x), t(d), t(args["t"]), t(args["dt_dx"]), twarp.WarpConfig(),
@@ -114,8 +116,9 @@ def test_surface_interaction(case, its, differentiable):
     render) takes the normal from the detached grid evaluation, whose CPU
     path is the plain version of the CUDA kernel ``csrc/grid_eval.cu``."""
     grid, o, d = case
-    sj = jint.compute_surface_interaction(JGridSDF.create(grid), jnp.asarray(o), jnp.asarray(d), jnp.asarray(its),
-                                          differentiable=differentiable)
+    sj = jax.jit(lambda g, o, d, its: jint.compute_surface_interaction(JGridSDF.create(g), o, d, its,
+                                                                       differentiable=differentiable),
+                 **JIT_LEVEL0)(grid, o, d, its)
     with torch.set_grad_enabled(differentiable):
         st = tint.compute_surface_interaction(GridSDF.create(t(grid)), t(o), t(d), t(its),
                                               differentiable=differentiable)

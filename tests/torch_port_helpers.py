@@ -8,6 +8,12 @@ import torch
 # thread (also makes CPU reductions deterministic).
 torch.set_num_threads(1)
 
+# ``jax.jit`` options for a JAX side compiled at backend optimisation level
+# 0: its multiply-adds are not contracted, so it rounds like the JAX
+# function run op by op (and like the port), and it compiles faster than
+# the optimised program; see tests/test_torch_conv_warp.py.
+JIT_LEVEL0 = dict(compiler_options={"xla_backend_optimization_level": 0})
+
 
 def to_np(x):
     if isinstance(x, torch.Tensor):
