@@ -98,11 +98,28 @@ line; any failure raises and the script exits non-zero:
    ``optimize_torch.main`` with ``--configs conv32`` for 1 iteration; K1,
    K2 and redistancing must launch in each run; seconds per iteration and
    peak memory.
-14. ``launch_count`` — the CUDA launches of one redistancing call at every
+14. ``scenefile`` — the scene files, the mesh -> SDF tools and the
+   validation and optimisation tools, one line an item: each checked-in
+   scene file (``scenes/example/example.json``, ``hybrid_floor.json``,
+   ``scenes/studio/studio.json``) loaded on the card at its own widths,
+   every view rendered primal at 64 spp and view 0 grad-mode with a backward
+   pass to the grid, and the studio's view 0 at 4 spp against the host's
+   plain path; ``eval_forward_gradient`` on the studio's view 0 (forward
+   mode, and central differences at ε = 1e-3, 2048 spp) with the two
+   images' agreement; ``create_sdf`` of the trefoil, blob and cinquefoil
+   meshes at 64³ and 128³ against the checked-in ``.vol`` assets, host and
+   card seconds apart; ``optimize_torch.main`` with ``--configs fd`` (1
+   iteration, ``no-tex-12``); ``optimize_shape`` (``bunny``, ``no-tex-12``,
+   2 iterations) with progress images, then resumed from checkpoint 0, the
+   stitched losses and wall time checked, the loss plot reported, the
+   convergence video and ``device_time`` of one render; ``trace_2d`` at a
+   disk and a ``Grid2d`` on the card against the host.  K1, K2 and
+   redistancing must launch where each item runs them.
+15. ``launch_count`` — the CUDA launches of one redistancing call at every
    size (at most 2) and of one K1 call, as ``torch.profiler`` records them,
    after the timed phases; and the launches and device time of one view of
    the textured step with and without its texture volumes bound.
-15. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
+16. the ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line, and the
    final ``{"ok": true, ...}`` line.
 """
 
@@ -110,6 +127,7 @@ from __future__ import annotations
 
 import importlib.metadata
 import json
+import math
 import os
 import re
 import shutil
@@ -1930,6 +1948,322 @@ def phase_conv(device):
     return [counts, counts32]
 
 
+# the scenefile phase: the checked-in scene files at their own widths, the
+# samples of their primal renders, the gradient images' settings (the JAX
+# package's defaults: ε 1e-3, 2048 spp for FD) and the mesh -> SDF grids
+SCENE_FILES = ("scenes/example/example.json", "scenes/example/hybrid_floor.json", "scenes/studio/studio.json")
+SCENE_SPP = 64
+FD_EPS, FD_SPP = 1e-3, 2048
+MESH_SDFS = (("trefoil", 64), ("trefoil", 128), ("blob", 64), ("blob", 128), ("cinquefoil", 64),
+             ("cinquefoil", 128))
+SCENEFILE_ITERS = 2
+# create_sdf on the card against the checked-in assets, (max, 99.9th
+# percentile) of |difference| a resolution.  The card redistances as the
+# plain version does, bit for bit, and the assets are the JAX package's
+# create_sdf (its CPU build reproduces them bit for bit).  Measured on the
+# host: 1.3e-5 to 2.4e-5 at 64³ (99.9th percentile 1.1e-5); at 128³ up to
+# 1.68e-3 on 367-643 voxels far from the surface, where both packages are
+# 3e-3 to 5e-3 off the exact distance and the JAX package's compiled
+# redistancing moves 1.4e-3 under a 1-ulp change of its input (the port's
+# 1.2e-5), 99.9th percentile 4.2e-5 (ROADMAP §C gap 1)
+CREATE_SDF_LIMITS = {64: (3e-5, 1.5e-5), 128: (2e-3, 5e-5)}
+
+
+def scene_file_case(path, device):
+    """``load_scene_file(path)`` on the card at the file's widths; every view
+    primal at ``SCENE_SPP``; view 0 grad-mode with a backward pass to the
+    grid (finite, non-zero).  Returns its record and the two count dicts."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render_chunked
+    from differentiable_sdf_rendering_tpu_torch.models.scene_file import load_scene_file
+
+    scene, load_counts, load_seconds, _ = counted(lambda: load_scene_file(path, device=device))
+    cfg = RenderConfig(spp=SCENE_SPP)
+    leaf = scene.sdf.data.clone().requires_grad_(True)
+
+    def renders():
+        imgs = [render_chunked(scene, v, seed=v, cfg=cfg, mode="primal", device=device)
+                for v in range(scene.n_views)]
+        grad_img = render_chunked(scene.replace(sdf=scene.sdf.with_data(leaf)), 0, seed=scene.n_views, cfg=cfg,
+                                  mode="grad", device=device)
+        grad_img[..., :3].sum().backward()
+        return imgs
+
+    imgs, counts, seconds, peak = counted(renders)
+    cams = scene.cameras
+    if not all(img.shape == (cams.resy, cams.resx, 4) and bool(torch.isfinite(img).all()) for img in imgs):
+        raise AssertionError(f"{path}: primal renders not finite or of the wrong shape")
+    grad_norm = float(leaf.grad.norm())
+    if not (bool(torch.isfinite(leaf.grad).all()) and grad_norm > 0):
+        raise AssertionError(f"{path}: grid gradient {grad_norm}")
+    # the procedural grid is redistanced on load; the renders trace (K1) and
+    # shade (K2) on the card
+    require_launched(path, counts)
+    if load_counts["redistance"] == 0:
+        raise AssertionError(f"{path}: loading the scene did not redistance on the card: {load_counts}")
+    record = {
+        "grid": list(scene.sdf.data.shape), "views": scene.n_views, "film": [cams.resx, cams.resy],
+        "triangles": 0 if scene.mesh is None else scene.mesh.n_triangles,
+        "area_light": scene.area_emitter is not None, "emitter": type(scene.emitter).__name__,
+        "load_seconds": load_seconds, "render_seconds": seconds, "peak_memory_bytes": peak,
+        "image_means": [float(img[..., :3].mean()) for img in imgs], "grid_gradient_norm": grad_norm,
+        "load_kernel_launches": load_counts, "render_kernel_launches": counts,
+    }
+    return scene, record, [load_counts, counts]
+
+
+def studio_host_check(scene, path, device):
+    """View 0 of the studio scene at 4 spp on the card against the same
+    scene loaded and rendered on the host (the plain versions), at the
+    ``reference`` phase's tolerance."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render
+    from differentiable_sdf_rendering_tpu_torch.models.scene_file import load_scene_file
+
+    cfg = RenderConfig(spp=4)
+    card = render(scene, 0, seed=0, cfg=cfg, device=device).cpu()
+    host = render(load_scene_file(path, device="cpu"), 0, seed=0, cfg=cfg, device="cpu")
+    diff = (card - host).abs()
+    mean_diff, max_diff = float(diff.mean()), float(diff.max())
+    if not (bool(torch.isfinite(card).all()) and mean_diff < 1e-6 and max_diff < 1e-4):
+        raise AssertionError(f"studio view 0: card vs host abs diff mean {mean_diff}, max {max_diff}")
+    return {"spp": 4, "mean_abs_diff": mean_diff, "max_abs_diff": max_diff}
+
+
+def forward_gradient_case(scene, device):
+    """``eval_forward_gradient`` on view 0, axis 0: forward mode through the
+    grad-mode render at ``SCENE_SPP`` and central differences of two primal
+    renders at ±``FD_EPS`` with ``FD_SPP`` samples; their agreement is
+    recorded (the warp estimator's bias against FD is the reference's own)."""
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig
+    from differentiable_sdf_rendering_tpu_torch.opt.validation import eval_forward_gradient
+
+    cfg = RenderConfig(spp=SCENE_SPP)
+    out = {}
+    for method in ("ad", "fd"):
+        (img, grad, _), counts, seconds, peak = counted(lambda: eval_forward_gradient(
+            scene, cfg, axis=0, view_idx=0, seed=0, method=method, fd_eps=FD_EPS, fd_spp=FD_SPP))
+        if not (bool(torch.isfinite(img).all()) and bool(torch.isfinite(grad).all())):
+            raise AssertionError(f"eval_forward_gradient({method}): not finite")
+        out[method] = {"grad": grad.double().flatten(), "seconds": seconds, "peak_memory_bytes": peak,
+                       "kernel_launches": counts, "grad_abs_sum": float(grad.abs().sum())}
+    a, f = out["ad"].pop("grad"), out["fd"].pop("grad")
+    if not float(a.abs().sum()) > 0:
+        raise AssertionError("the forward-mode gradient image is zero")
+    # the FD renders are primal (K1, K2); the forward-mode render is a
+    # grad-mode render, whose traces are the masked sphere_trace_warp loop
+    # and whose evaluations are attached: no K1 or K2 launch is expected there
+    require_launched("eval_forward_gradient(fd)", out["fd"]["kernel_launches"])
+    ac, fc = a - a.mean(), f - f.mean()
+    return {
+        "view": 0, "axis": 0, "ad_spp": SCENE_SPP, "fd_eps": FD_EPS, "fd_spp": FD_SPP, **out,
+        "relative_l2_ad_vs_fd": float((a - f).norm() / f.norm()),
+        "pearson_ad_fd": float((ac * fc).sum() / (ac.norm() * fc.norm())),
+    }
+
+
+def mesh_sdf_cases(device):
+    """``create_sdf`` of the three generated meshes at 64³ and 128³ on the
+    card against the checked-in ``.vol`` assets (built by the JAX package's
+    ``create_sdf``): differences, the host (native) and card (redistancing)
+    seconds, the redistancing launches."""
+    import numpy as np
+
+    from differentiable_sdf_rendering_tpu_torch.models.scenes_zoo import ASSET_DIR
+    from differentiable_sdf_rendering_tpu_torch.utils import mesh as mesh_mod
+    from differentiable_sdf_rendering_tpu_torch.utils.io import read_vol
+    from differentiable_sdf_rendering_tpu_torch.utils.profiling import Timer
+
+    cases = {}
+    for name, res in MESH_SDFS:
+        mesh = getattr(mesh_mod, name)()
+        timer = Timer(device)
+        grid, counts, seconds, _ = counted(lambda: mesh_mod.create_sdf(mesh, res, device=device, timer=timer))
+        asset = read_vol(os.path.join(ASSET_DIR, "sdfs", f"{name}_{res}.vol"))[..., 0]
+        diff = np.abs(grid.cpu().numpy() - asset)
+        p999 = float(np.percentile(diff, 99.9))
+        max_limit, p999_limit = CREATE_SDF_LIMITS[res]
+        if not (grid.shape == (res, res, res) and diff.max() <= max_limit and p999 <= p999_limit
+                and counts["redistance"] == 2):
+            raise AssertionError(f"create_sdf({name}, {res}): max diff {diff.max()}, 99.9th percentile {p999}, "
+                                 f"counts {counts}")
+        near = np.abs(asset) < 2.0 / res
+        cases[f"{name}_{res}"] = {
+            "triangles": len(mesh[1]), "max_abs_diff": float(diff.max()), "p99_9_abs_diff": p999,
+            "voxels_over_1e-4": int((diff > 1e-4).sum()), "max_abs_diff_within_2_voxels": float(diff[near].max()),
+            "seconds": seconds,
+            "native_seconds": timer.sections["native"], "card_seconds": timer.sections["redistance"],
+            "kernel_launches": counts,
+        }
+    return cases
+
+
+def resume_case(device):
+    """``optimize_shape("bunny", no-tex-12, warp)`` for ``SCENEFILE_ITERS``
+    iterations with checkpoints and progress images, then resumed from
+    checkpoint 0 to the same end; the stitched losses and wall time of
+    ``metadata.json``, the loss plot, the convergence video over the written
+    images and ``device_time`` of one render of the result."""
+    import math
+
+    import numpy as np
+
+    from differentiable_sdf_rendering_tpu_torch.models.integrator import RenderConfig, render
+    from differentiable_sdf_rendering_tpu_torch.opt.configs import get_config
+    from differentiable_sdf_rendering_tpu_torch.opt.opt_configs import get_opt_config
+    from differentiable_sdf_rendering_tpu_torch.utils.io import read_png
+    from differentiable_sdf_rendering_tpu_torch.utils.profiling import device_time
+    from differentiable_sdf_rendering_tpu_torch.utils.video import convergence_video
+
+    opt_cfg, _ = get_opt_config("no-tex-12")
+    method = get_config("warp")
+    n = SCENEFILE_ITERS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as out_dir:
+        first, counts, seconds, peak, _ = run_optimize("bunny", opt_cfg, method, n, output_dir=out_dir,
+                                                       ref_spp=REF_SPP, target_res=128, write_images=True,
+                                                       device=device)
+        require_all_launched("resume (first run)", counts)
+        with open(os.path.join(out_dir, "metadata.json")) as f:
+            first_time = json.load(f)["total_time"]
+        images = sorted(os.listdir(os.path.join(out_dir, "opt")))
+        want = [f"opt-{i:04d}-{v:02d}.png" for i in range(n) for v in range(6)]
+        if images != want:
+            raise AssertionError(f"progress images {images}, expected {want}")
+        loss_plot = os.path.exists(os.path.join(out_dir, "loss.png"))
+
+        import differentiable_sdf_rendering_tpu_torch.opt.shape_opt as shape_opt
+
+        resumed, resume_counts, resume_seconds, _ = counted(lambda: shape_opt.optimize_shape(
+            "bunny", opt_cfg, method, output_dir=out_dir, ref_spp=REF_SPP, target_res=128, n_iter=n,
+            resume_from=0, verbose=False, device=device))
+        with open(os.path.join(out_dir, "metadata.json")) as f:
+            meta = json.load(f)
+        stitched_ok = (len(resumed.loss_values) == n and resumed.loss_values[0] == first.loss_values[0]
+                       and math.isfinite(resumed.loss_values[-1]) and meta["loss_values"] == resumed.loss_values
+                       and meta["total_time"] > first_time)
+        if not stitched_ok:
+            raise AssertionError(f"resume: losses {resumed.loss_values} after {first.loss_values}, "
+                                 f"total_time {meta['total_time']} after {first_time}")
+        require_all_launched("resume", resume_counts)
+
+        def png(name):
+            return (read_png(os.path.join(out_dir, "opt", name))[..., :3].astype(np.float32) / 255.0) ** 2.2
+
+        # each iteration's views over the last iteration's (the run renders
+        # its references inside optimize_shape and returns none)
+        opt_images = {i: [png(f"opt-{i:04d}-{v:02d}.png") for v in range(6)] for i in range(n)}
+        ffmpeg_ran = convergence_video(out_dir, opt_images, opt_images[n - 1])
+        frames = sorted(os.listdir(os.path.join(out_dir, "convergence")))
+
+    scene = resumed.scene
+    cfg = RenderConfig(spp=SCENE_SPP)
+    render_s, img = device_time(lambda: render(scene, 0, seed=0, cfg=cfg, device=device), n_runs=5, device=device)
+    if not bool(img.isfinite().all()):
+        raise AssertionError("device_time: the render is not finite")
+    return {
+        "iterations": n, "loss": first.loss_values, "iter_seconds": first.iter_seconds, "seconds_total": seconds,
+        "peak_memory_bytes": peak, "kernel_launches": counts, "progress_images": len(images),
+        "loss_png_written": loss_plot, "resume_from": 0, "resumed_loss": resumed.loss_values,
+        "resumed_iter_seconds": resumed.iter_seconds, "resume_seconds": resume_seconds,
+        "resume_kernel_launches": resume_counts, "total_time_before_and_after": [first_time, meta["total_time"]],
+        "convergence_frames": len(frames), "ffmpeg_ran": ffmpeg_ran,
+        "device_time_render_s": render_s, "device_time_render": f"view 0, {scene.cameras.resx}x{scene.cameras.resy}, {SCENE_SPP} spp, 5 runs",
+    }
+
+
+def trace_2d_case(device):
+    """``trace_2d`` of 2¹⁶ rays at a disk and at a 256² ``Grid2d`` of a
+    disk with noise, on the card against the plain host path: hit bits
+    equal, ``its_t`` of the hits within 5e-5 (measured 1.0e-5 on the disk:
+    the card's sqrt and pow round otherwise, over up to 64 steps), step
+    counts equal on all but 1e-3 of the rays (measured: 1 of 65,536)."""
+    import numpy as np
+    import torch
+
+    from differentiable_sdf_rendering_tpu_torch.ops import sdf2d
+
+    rng = np.random.default_rng(2)
+    n, res = 1 << 16, 256
+    o = np.stack([rng.uniform(-0.5, 1.5, n), np.full(n, -1.0)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-0.6, 0.6, n), np.ones(n)], -1).astype(np.float32)
+    xs = (np.arange(res) + 0.5) / res
+    x, y = np.meshgrid(xs, xs)
+    grid = (np.sqrt((x - 0.5) ** 2 + (y - 0.45) ** 2) - 0.3 + 0.002 * rng.standard_normal((res, res)))
+    out = {}
+    for name in ("disk", "grid"):
+        runs = {}
+        for dev in ("cpu", device):
+            sdf = (sdf2d.DiskSDF.create((0.5, 0.45), 0.3, device=dev) if name == "disk"
+                   else sdf2d.Grid2d(data=torch.tensor(grid, dtype=torch.float32, device=dev)))
+            t0 = time.perf_counter()
+            r = sdf2d.trace_2d(sdf, torch.tensor(o, device=dev), torch.tensor(d, device=dev))
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            runs[str(dev)] = ({k: v.cpu() for k, v in r.items()}, time.perf_counter() - t0)
+        (host, host_s), (card, card_s) = runs["cpu"], runs[str(device)]
+        hit_h, hit_c = torch.isfinite(host["its_t"]), torch.isfinite(card["its_t"])
+        both = hit_h & hit_c
+        dt = float((host["its_t"][both] - card["its_t"][both]).abs().max())
+        steps_differ = float((host["i"] != card["i"]).double().mean())
+        if not (torch.equal(hit_h, hit_c) and dt < 5e-5 and steps_differ < 1e-3 and 0.1 < float(hit_h.double().mean()) < 0.9):
+            raise AssertionError(f"trace_2d({name}): hit bits equal {torch.equal(hit_h, hit_c)}, its_t {dt}, "
+                                 f"steps differ on {steps_differ}")
+        out[name] = {"rays": n, "hit_share": float(hit_h.double().mean()), "max_abs_dits_t": dt,
+                     "steps_differ_share": steps_differ, "card_seconds": card_s, "host_seconds": host_s}
+    return out
+
+
+def phase_scenefile(device):
+    """Scene files, the mesh -> SDF tools, the validation and optimisation
+    tools on the card: each item prints its own line (``phase`` =
+    ``scenefile``, ``item`` its name); returns the kernel counts of the
+    phase's runs."""
+    import optimize_torch
+
+    all_counts = []
+    studio = None
+    for path in SCENE_FILES:
+        scene, record, counts = scene_file_case(path, device)
+        all_counts += counts
+        if path.endswith("studio.json"):
+            studio = scene
+            record["host_check"] = studio_host_check(scene, path, device)
+        emit({"phase": "scenefile", "item": "scene_file", "path": path, **record})
+
+    grad = forward_gradient_case(studio, device)
+    all_counts += [grad["ad"]["kernel_launches"], grad["fd"]["kernel_launches"]]
+    emit({"phase": "scenefile", "item": "eval_forward_gradient", "scene": SCENE_FILES[-1], **grad})
+
+    meshes = mesh_sdf_cases(device)
+    all_counts += [c["kernel_launches"] for c in meshes.values()]
+    emit({"phase": "scenefile", "item": "create_sdf", "grids": meshes})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fd_") as out_dir:
+        _, fd_counts, fd_seconds, fd_peak = counted(lambda: optimize_torch.main(
+            ["bunny", "--optconfig", "no-tex-12", "--configs", "fd", "--n_iter", "1",
+             "--refspp", str(REF_SPP), "--outputdir", out_dir]))
+        with open(os.path.join(out_dir, "bunny", "no-tex-12", "fd", "metadata.json")) as f:
+            fd_meta = json.load(f)
+    if len(fd_meta["loss_values"]) != 1 or not all(map(math.isfinite, fd_meta["loss_values"])):
+        raise AssertionError(f"optimize_torch.main --configs fd: losses {fd_meta['loss_values']}")
+    require_all_launched("fd CLI", fd_counts)
+    all_counts.append(fd_counts)
+    emit({"phase": "scenefile", "item": "cli_fd", "loss": fd_meta["loss_values"],
+          "iter_seconds": fd_meta["iter_seconds"], "seconds_total": fd_seconds, "peak_memory_bytes": fd_peak,
+          "kernel_launches": fd_counts})
+
+    resume = resume_case(device)
+    all_counts += [resume["kernel_launches"], resume["resume_kernel_launches"]]
+    emit({"phase": "scenefile", "item": "resume_images", **resume})
+
+    emit({"phase": "scenefile", "item": "trace_2d", **trace_2d_case(device)})
+    return all_counts
+
+
 GOLDEN_NAMES = ("trefoil", "blob", "cinquefoil")
 
 
@@ -2055,7 +2389,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    from differentiable_sdf_rendering_tpu_torch import kernels
+    from differentiable_sdf_rendering_tpu_torch import kernels, native
 
     device = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -2066,7 +2400,11 @@ def main(argv):
     })
 
     built = kernels.build_all(verbose_ptxas=True)
+    t_native = time.perf_counter()
+    native.library()  # the host helpers of create_sdf, g++ from native/voxelize.cpp
     emit({"phase": "build", "seconds": built["seconds"], "built": built["built"],
+          "native_seconds": time.perf_counter() - t_native,
+          "native_library": os.path.relpath(native._lib_path()),
           "ptxas": [ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln]})
 
     phase_seconds = {}
@@ -2100,6 +2438,7 @@ def main(argv):
     plane_area_counts = timed("plane_area", phase_plane_area, device)
     prb_counts = timed("prb", phase_prb, device)
     conv_counts = timed("conv", phase_conv, device)
+    scenefile_counts = timed("scenefile", phase_scenefile, device)
     k1_launches, redistance_launches = timed("launch_count", phase_launch_count, device, textured=textured)
     emit({"phase": "timing", "seconds": phase_seconds, "since_start": time.perf_counter() - T_START})
 
@@ -2109,11 +2448,13 @@ def main(argv):
     def slice_launches(key):
         """The launches of the hybrid phases: the shadow run (+ its turntable
         frame and CLI iteration), the mirror run, the plane_area renders and
-        run; of the prb phase (its four runs and its oracle); and of the conv
-        phase (its run and the conv32 CLI iteration)."""
+        run; of the prb phase (its four runs and its oracle); of the conv
+        phase (its run and the conv32 CLI iteration); and of the scenefile
+        phase (all its items)."""
         return {"shadow_launches": launches_in(shadow_counts, key), "mirror_launches": mirror_counts[key],
                 "plane_area_launches": launches_in(plane_area_counts, key),
-                "prb_launches": launches_in(prb_counts, key), "conv_launches": launches_in(conv_counts, key)}
+                "prb_launches": launches_in(prb_counts, key), "conv_launches": launches_in(conv_counts, key),
+                "scenefile_launches": launches_in(scenefile_counts, key)}
 
     # Each kernel's times at the main path's shapes; the other shapes are in
     # the ``kernels`` phase lines.  ``launches`` counts the wrapper's calls

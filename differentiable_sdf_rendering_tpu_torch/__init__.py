@@ -6,13 +6,16 @@ numeric reference) and mirrors its layout, so the counterpart of
 ``ops/trace.py::sphere_trace`` there is ``ops/trace.py::sphere_trace`` here:
 
   ops/       — grid interpolation, sphere tracing, warp fields, redistancing,
-               film splatting, sampling
-  models/    — cameras, BSDF, emitters, scene, integrator
-  opt/       — variables, losses, regularizer, Adam, configs, the training loop
-  utils/     — numpy <-> port state conversion, .vol / PNG / metadata I/O,
-               turntable renders
+               film splatting, sampling, the 2-D SDFs
+  models/    — cameras, BSDF, emitters, scene, scene files, integrator
+  opt/       — variables, losses, regularizer, Adam, configs, the training
+               loop, gradient-image validation
+  utils/     — numpy <-> port state conversion, .vol / PNG / EXR / metadata
+               I/O, mesh loading and mesh -> SDF, turntable and convergence
+               videos, timing and tracing
   csrc/      — hand-written CUDA sources (built at first use by kernels.py):
                redistancing, sphere tracing, detached grid evaluation
+  native/    — host C++ of the mesh -> SDF tools (built at first use by g++)
 
 Plain tensor code runs eagerly; there is no ``jit``.  Every entry point takes
 an explicit ``device``: ``None`` means the CUDA card and raises when there is

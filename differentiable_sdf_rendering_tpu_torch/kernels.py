@@ -102,10 +102,11 @@ def _start_build(name: str, extra_flags=()):
 
 
 def _finish_build(proc, cmd, tmp, lib) -> str:
-    """Wait for one ``nvcc`` run, install its library; returns its output."""
+    """Wait for one compiler run, install its library; returns its output."""
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        name = os.path.basename(cmd[0])
+        raise RuntimeError(f"{name} failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)
     return out
 

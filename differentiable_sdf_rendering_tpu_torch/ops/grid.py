@@ -51,6 +51,11 @@ def bspline_weights(f):
       (continuous voxel units; multiply by ``res`` per derivative order to
       get normalized-coordinate derivatives).
     """
+    return _bspline_rows(f, 2)
+
+
+def _bspline_rows(f, order):
+    """The first ``order + 1`` of :func:`bspline_weights`' ``(w, dw, ddw)``."""
     f2 = f * f
     f3 = f2 * f
     one_m = 1.0 - f
@@ -63,6 +68,8 @@ def bspline_weights(f):
         ],
         dim=-1,
     )
+    if order == 0:
+        return (w,)
     dw = torch.stack(
         [
             -0.5 * one_m * one_m,
@@ -72,33 +79,50 @@ def bspline_weights(f):
         ],
         dim=-1,
     )
+    if order == 1:
+        return w, dw
     ddw = torch.stack([one_m, 3.0 * f - 2.0, 1.0 - 3.0 * f, f], dim=-1)
     return w, dw, ddw
 
 
-def _res_vector(data, p):
+_CONSTS: dict = {}
+
+
+def _consts(data, p, offsets):
+    """Per-(grid shape, device, dtype) constants of :func:`_tap_setup`:
+    ``res`` (x, y, z), the tap offsets, the per-axis last index and the
+    per-axis strides of the flattened grid."""
     zres, yres, xres = data.shape[-3], data.shape[-2], data.shape[-1]
-    return torch.tensor([xres, yres, zres], dtype=p.dtype, device=p.device)
+    key = (xres, yres, zres, offsets, p.dtype, p.device)
+    hit = _CONSTS.get(key)
+    if hit is None:
+        i64 = dict(dtype=torch.int64, device=p.device)
+        with torch.inference_mode(False):  # a cached tensor may be saved for a backward later
+            hit = (
+                torch.tensor([xres, yres, zres], dtype=p.dtype, device=p.device),
+                torch.tensor(offsets, **i64),
+                torch.tensor([[xres - 1], [yres - 1], [zres - 1]], **i64),
+                torch.tensor([[1], [xres], [yres * xres]], **i64),
+            )
+        _CONSTS[key] = hit
+    return hit
 
 
 def _tap_setup(data, p, offsets=(-1, 0, 1, 2)):
     """Tap values (..., nz, ny, nx) and per-axis fractions for the window
     ``floor(c) + offsets`` (clamped per axis)."""
-    zres, yres, xres = data.shape[-3], data.shape[-2], data.shape[-1]
-    res = _res_vector(data, p)
+    res, offs, last, strides = _consts(data, p, offsets)
     c = p * res - 0.5
     base = torch.floor(c)
     f = c - base
     base = base.detach().to(torch.int64)
 
-    offs = torch.tensor(offsets, dtype=torch.int64, device=p.device)
-    ix = torch.clamp(base[..., 0:1] + offs, 0, xres - 1)  # (..., n)
-    iy = torch.clamp(base[..., 1:2] + offs, 0, yres - 1)
-    iz = torch.clamp(base[..., 2:3] + offs, 0, zres - 1)
+    # the three axes at once: (..., 3, n) clamped indices, times the strides
+    idx = torch.minimum((base[..., None] + offs).clamp_min(0), last) * strides
     lin = (
-        iz[..., :, None, None] * (yres * xres)
-        + iy[..., None, :, None] * xres
-        + ix[..., None, None, :]
+        idx[..., 2, :, None, None]
+        + idx[..., 1, None, :, None]
+        + idx[..., 0, None, None, :]
     )  # (..., n, n, n)
     # index_select (not advanced indexing): its backward is index_add_'s
     # atomic scatter, not the sort-based accumulation of index_put_
@@ -133,9 +157,11 @@ def _jet_contract(taps, wxs, wys, wzs, orders):
 
 
 def _eval_orders(taps, f, orders):
-    wx = bspline_weights(f[..., 0])
-    wy = bspline_weights(f[..., 1])
-    wz = bspline_weights(f[..., 2])
+    order = max(max(o) for o in orders)  # the weight rows the orders read
+    rows = _bspline_rows(f, order)  # the three axes at once: (..., 3, 4) each
+    wx = tuple(r[..., 0, :] for r in rows)
+    wy = tuple(r[..., 1, :] for r in rows)
+    wz = tuple(r[..., 2, :] for r in rows)
     return _jet_contract(taps, wx, wy, wz, orders)
 
 

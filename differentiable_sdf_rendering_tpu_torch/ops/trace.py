@@ -46,8 +46,10 @@ from .vecmath import (
 __all__ = ["TraceResult", "sphere_trace", "sphere_trace_plain", "sphere_trace_warp"]
 
 _INF = math.inf
-# Below this many lanes a working set is no longer re-compacted.
-_MIN_COMPACT = 1024
+# Below this many lanes a working set is no longer re-compacted.  On the
+# card a step of a small set costs its launches whatever its size; on the
+# host every lane costs, so there the set shrinks down to a few lanes.
+_MIN_COMPACT = {"cuda": 1024, "cpu": 64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +86,7 @@ def _masked_loop(body, state, consts):
     """
     idx = None  # None = the working set is the whole batch
     work_s, work_c = state, consts
+    min_compact = _MIN_COMPACT.get(state["active"].device.type, 1024)
 
     def flush():
         if idx is None:
@@ -95,7 +98,7 @@ def _masked_loop(body, state, consts):
         n_act = int(work_s["active"].sum())
         if n_act == 0:
             break
-        if m > _MIN_COMPACT and 2 * n_act <= m:
+        if m > min_compact and 2 * n_act <= m:
             state = flush()
             keep = work_s["active"].nonzero().squeeze(1)
             idx = keep if idx is None else idx[keep]

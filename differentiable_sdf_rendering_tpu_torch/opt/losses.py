@@ -9,9 +9,10 @@ images; this is reproduced exactly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["l1", "l2", "mape", "box_blur_2x2", "multiscale", "multiscale_l1", "downsample_half"]
+__all__ = ["l1", "l2", "mape", "box_blur_2x2", "multiscale", "multiscale_l1", "downsample_half", "ema_smooth"]
 
 
 def l1(img, ref):
@@ -54,3 +55,12 @@ def downsample_half(img):
     h, w = img.shape[0] // 2 * 2, img.shape[1] // 2 * 2
     x = img[:h, :w]
     return 0.25 * (x[0::2, 0::2] + x[1::2, 0::2] + x[0::2, 1::2] + x[1::2, 1::2])
+
+
+def ema_smooth(values, beta: float = 0.9):
+    """Exponential-moving-average smoothing of a loss curve, in float64 on the
+    host (a figure helper, as in the JAX package)."""
+    out = np.asarray(values, dtype=np.float64).copy()
+    for i in range(1, len(out)):
+        out[i] = beta * out[i - 1] + (1.0 - beta) * out[i]
+    return out

@@ -18,21 +18,31 @@ Semantics kept from the reference:
   * albedo and roughness volumes bound to the BSDF's textures;
   * EMA of parameters;
   * with an ``output_dir``: ``params/<key>-data-NNNN.vol`` every
-    ``checkpoint_frequency`` iterations and at the last one, the EMA in
-    ``params/<key>-final.vol`` and ``metadata.json`` (written also when the
-    run fails), read back by :func:`load_checkpoint`.
+    ``checkpoint_frequency`` iterations and at the last one (with
+    ``write_images``, also primal PNGs of up to 6 views at ≤ 16 spp,
+    ``opt/opt-NNNN-VV.png``), the EMA in ``params/<key>-final.vol``,
+    ``metadata.json`` and the loss plot ``loss.png``/``loss.pdf`` (written
+    also when the run fails), read back by :func:`load_checkpoint`;
+  * ``resume_from=i`` restarts after checkpoint ``i``, stitching the loss
+    history and wall time of ``metadata.json``.
 
-Not implemented here: resume, the per-view progress images and the loss
-plot of the JAX package's ``optimize_shape``, device meshes.
+The method ``fd`` trains as the JAX package's ``optimize_shape`` trains it:
+that reads only ``warp_kind`` (``"dummy"``), not ``use_finite_differences``,
+so ``fd`` gives the ``onlyshadinggrad`` run.  Finite differences proper are
+``opt/validation.py::eval_forward_gradient(method="fd")``.
+
+Not implemented here: device meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -44,7 +54,7 @@ from ..ops.film import BORDER, develop
 from ..ops.initializers import upsample_sdf, upsample_volume
 from ..ops.sdf import GridSDF
 from ..ops.warp_conv import ConvWarpConfig
-from ..utils.io import dump_metadata, read_vol, write_vol
+from ..utils.io import dump_metadata, read_vol, write_png, write_vol
 from . import losses as losses_mod
 from .adam import adam_init, adam_step
 from .configs import BaseConfig
@@ -192,6 +202,59 @@ def _finish_step(params, adam_state, ema, grads, total_loss, lrs, *, specs, mask
     return new_params, new_state, new_ema, total_loss
 
 
+def _write_loss_plot(loss_values, output_dir):
+    """Loss curve ``loss.pdf`` and ``loss.png``; best effort, as in the JAX
+    package: without matplotlib the plot is skipped with a printed line."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure()
+        plt.plot(np.arange(len(loss_values)), loss_values)
+        plt.xlabel("Iterations")
+        plt.ylabel("Objective function value")
+        if loss_values:
+            avg = float(np.mean(np.asarray(loss_values)[-5:]))
+            plt.title(f"Final loss: {100 * loss_values[-1]:.3f} (avg. over 5 its: {100 * avg:.3f})")
+        plt.savefig(os.path.join(output_dir, "loss.pdf"))
+        plt.savefig(os.path.join(output_dir, "loss.png"))
+        plt.close()
+    except Exception as e:  # a plot, not the run: never fail the run for it
+        print("loss plot skipped:", e)
+
+
+def _resumed_history(output_dir, resume_from: int):
+    """``(loss_values, total_time)`` of the run before ``resume_from``, from
+    ``metadata.json``: its first ``resume_from + 1`` losses, padded with NaN
+    to that length; NaNs and 0 s where the file is absent or unreadable."""
+    pad = [float("nan")] * (resume_from + 1)
+    meta_path = os.path.join(output_dir, "metadata.json")
+    if not os.path.exists(meta_path):
+        return pad, 0.0
+    try:
+        with open(meta_path) as f:
+            prior = json.load(f)
+        prev = list(prior.get("loss_values", []))[: resume_from + 1]
+        return prev + pad[len(prev):], float(prior.get("total_time", 0.0))
+    except (OSError, ValueError, TypeError) as e:  # a corrupt file must not block the resume
+        print(f"[resume] could not stitch prior metadata: {e}")
+        return pad, 0.0
+
+
+@torch.no_grad()
+def _write_images(output_dir, scene: Scene, cfg_grad: RenderConfig, i: int, n_views: int,
+                  max_lanes: int = MAX_LANES):
+    """Primal PNGs of the first ``min(n_views, 6)`` views at ≤ 16 spp (seed
+    ``i``), in chunks of at most ``max_lanes`` lanes: ``opt/opt-NNNN-VV.png``."""
+    cfg = dataclasses.replace(cfg_grad, spp=min(cfg_grad.spp, 16))
+    for vi in range(min(n_views, 6)):
+        img = render_chunked(scene, seed=i, cfg=cfg, mode="primal", camera=scene.cameras.view(vi),
+                             max_lanes=max_lanes, device=scene.device)
+        write_png(os.path.join(output_dir, "opt", f"opt-{i:04d}-{vi:02d}.png"), img[..., :3].cpu().numpy())
+
+
 def _write_params(output_dir, params: dict, tag: str):
     for key, value in params.items():
         write_vol(os.path.join(output_dir, "params", f"{key}-{tag}.vol"), value.detach().cpu().numpy())
@@ -254,6 +317,8 @@ def optimize_shape(
     n_iter: int | None = None,
     verbose: bool = True,
     checkpoint_cb=None,
+    resume_from=None,
+    write_images: bool = False,
     max_lanes: int = MAX_LANES,
     device=None,
 ) -> OptimizationResult:
@@ -263,11 +328,14 @@ def optimize_shape(
     ``device=None`` runs on the CUDA card and raises when there is none;
     pass ``device="cpu"`` for the host.  ``max_lanes`` caps the lanes of one
     render chunk.  ``checkpoint_cb(i, params, loss_values)`` is called after
-    every iteration.  With ``output_dir``, checkpoints, the final EMA and
-    ``metadata.json`` are written there (see the module docstring).
+    every iteration.  With ``output_dir``, checkpoints, the final EMA,
+    ``metadata.json`` and the loss plot are written there, and with
+    ``write_images`` the progress PNGs (see the module docstring).
+    ``resume_from=i`` (needs ``output_dir``) starts from checkpoint ``i`` at
+    iteration ``i + 1``; Adam's moments start afresh, as in the JAX package.
     """
-    if method_cfg.use_finite_differences:
-        raise NotImplementedError("finite-difference gradients are not ported")
+    if resume_from is not None and not output_dir:
+        raise ValueError("resume requires an output_dir")
     device = resolve_device(device)
     on_card = device.type == "cuda"
     t_start = time.time()
@@ -291,19 +359,25 @@ def optimize_shape(
     )
     refs_pyramid = render_reference_images(target_scene, opt_cfg, ref_spp, ref_cfg, max_lanes)
 
-    # ---- initial parameters ----
-    params = {s.key: s.initialize(device=device) for s in specs}
+    # ---- initial parameters (or checkpoint restore) ----
+    if resume_from is not None:
+        params = load_checkpoint(output_dir, resume_from, specs, device=device)
+        loss_values, prior_time = _resumed_history(output_dir, resume_from)
+    else:
+        params = {s.key: s.initialize(device=device) for s in specs}
+        loss_values, prior_time = [], 0.0
     adam_state = adam_init(params)
     ema = dict(params)
-    loss_values, iter_seconds = [], []
+    iter_seconds = []
     seed = 0
 
     cfg_primal, cfg_grad = render_configs(method_cfg)
 
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
+    start_iter = resume_from + 1 if isinstance(resume_from, int) else 0
     try:
-        for i in range(n_iter):
+        for i in range(start_iter, n_iter):
             t_iter = time.perf_counter()
             # --- phase bookkeeping: film res + grid upsampling ---
             res = opt_cfg.res_at(i)
@@ -354,16 +428,21 @@ def optimize_shape(
                 print(f"[{i:4d}] loss = {loss_values[-1]:.5f}  res={res}  sdf={tuple(params['sdf'].shape)}")
             if output_dir and (i % opt_cfg.checkpoint_frequency == 0 or i == n_iter - 1):
                 _write_params(output_dir, params, f"data-{i:04d}")
+                if write_images:
+                    _write_images(output_dir, _build_scene(base, params), cfg_grad, i, opt_cfg.n_sensors,
+                                  max_lanes)
             if checkpoint_cb is not None:
                 checkpoint_cb(i, params, loss_values)
     finally:
-        # record what there is, also when an iteration raised
-        total_time = time.time() - t_start
+        # record what there is, also when an iteration raised; the time is
+        # cumulative across resumes
+        total_time = prior_time + (time.time() - t_start)
         if output_dir:
             _write_params(output_dir, ema, "final")
             dump_metadata(method_cfg, opt_cfg,
                           {"total_time": total_time, "loss_values": loss_values, "iter_seconds": iter_seconds},
                           os.path.join(output_dir, "metadata.json"))
+            _write_loss_plot(loss_values, output_dir)
     final_scene = Scene(sdf=GridSDF.create(params["sdf"]), bsdf=bsdf, emitter=emitter, cameras=cams_full,
                         **extras)
     return OptimizationResult(params, ema, loss_values, total_time, final_scene, iter_seconds)

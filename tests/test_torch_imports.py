@@ -21,6 +21,9 @@ import differentiable_sdf_rendering_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+# importing the host helpers neither builds nor loads their library
+assert pkg.native._LIB is None
+assert "libsdfnative" not in open("/proc/self/maps").read()
 import chip_smoke                     # imported, not run
 import optimize_torch, render_turntable_torch
 leaked = [m for m in set(sys.modules) - before

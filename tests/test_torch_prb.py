@@ -384,13 +384,16 @@ def test_prb_methods_through_the_cli(tmp_path, monkeypatch):
 
 
 def test_unported_methods_raise():
-    """``fd`` stays refused (PRB with the conv warp is refused by
-    test_torch_render.py::test_unported_paths_raise)."""
-    opt_cfg = topt_configs.SdfConfig(upsample_iter=(), n_sensors=1, resx=8, resy=8, sdf_res=8)
-    for name in ("fd",):
-        with pytest.raises(NotImplementedError):
-            shape_opt.optimize_shape("cubes", opt_cfg, tconfigs.get_config(name), n_iter=1, ref_spp=1,
-                                     target_res=8, verbose=False, device="cpu")
+    """No method of the registry is refused any more: ``fd`` trains as the
+    JAX package trains it, with shading gradients only (bit-equal to
+    ``onlyshadinggrad``: tests/test_torch_opt_tools.py).  PRB with the conv
+    warp stays refused (test_torch_render.py::test_unported_paths_raise).
+    Every method's training render configs build."""
+    for name in tconfigs.CONFIG_NAMES:
+        cfg_primal, cfg_grad = shape_opt.render_configs(tconfigs.get_config(name))
+        assert cfg_primal.spp >= cfg_grad.spp >= 1, name
+    fd, ref = (shape_opt.render_configs(tconfigs.get_config(n)) for n in ("fd", "onlyshadinggrad"))
+    assert fd == ref
 
 
 @pytest.mark.slow

@@ -1,8 +1,15 @@
 """The slice as a whole: ``optimize_shape`` of the port vs the JAX package on
-one tiny configuration, same seeds: loss per iteration, final grid, EMA."""
+one tiny configuration, same seeds: loss per iteration, final grid, EMA; the
+files each writes (checkpoints, progress images, ``metadata.json``, the loss
+plot) and a resume from them."""
 
 import dataclasses
+import json
+import os
+import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -10,9 +17,12 @@ import torch
 from differentiable_sdf_rendering_tpu.opt import configs as jconfigs, opt_configs as jopt_configs
 from differentiable_sdf_rendering_tpu.opt.shape_opt import optimize_shape as joptimize_shape
 from differentiable_sdf_rendering_tpu_torch.opt import configs as tconfigs, opt_configs as topt_configs
+from differentiable_sdf_rendering_tpu_torch.opt import shape_opt as tshape_opt
 from differentiable_sdf_rendering_tpu_torch.opt.shape_opt import optimize_shape
+from differentiable_sdf_rendering_tpu.opt import shape_opt as jshape_opt
 from differentiable_sdf_rendering_tpu_torch.ops.sdf import BoxSDF, SphereSDF
-from torch_port_helpers import to_np
+from differentiable_sdf_rendering_tpu_torch.utils.io import read_png
+from torch_port_helpers import JIT_LEVEL0, to_np
 
 # A two-view 16³ / 16² reconstruction of the 'cubes' scene, 2 grad + 4 primal
 # spp.  Which scene: 'torus' (and 'bunny', 'chair') agree with the JAX package
@@ -39,9 +49,13 @@ def _run(optimize, configs, opt_configs, n_iter, upsample_iter, scene=SCENE, **k
     return optimize(scene, opt_cfg, _method(configs), n_iter=n_iter, ref_spp=4, target_res=16, verbose=False, **kw)
 
 
-def _compare(n_iter, upsample_iter, loss_atol, grid_atol):
-    rt = _run(optimize_shape, tconfigs, topt_configs, n_iter, upsample_iter, device="cpu")
-    rj = _run(joptimize_shape, jconfigs, jopt_configs, n_iter, upsample_iter)
+def _compare(n_iter, upsample_iter, loss_atol, grid_atol, out_dirs=(None, None)):
+    """Both packages' runs, held together; with ``out_dirs`` (JAX, port) each
+    writes its files there, progress images included."""
+    jdir, tdir = out_dirs
+    images = {"write_images": True} if tdir else {}
+    rt = _run(optimize_shape, tconfigs, topt_configs, n_iter, upsample_iter, device="cpu", output_dir=tdir, **images)
+    rj = _run(joptimize_shape, jconfigs, jopt_configs, n_iter, upsample_iter, output_dir=jdir, **images)
     assert len(rt.loss_values) == n_iter and all(np.isfinite(rt.loss_values))
     np.testing.assert_allclose(rt.loss_values, rj.loss_values, rtol=0, atol=loss_atol)
     for got, want in ((rt.params["sdf"], rj.params["sdf"]), (rt.ema["sdf"], rj.ema["sdf"])):
@@ -50,16 +64,103 @@ def _compare(n_iter, upsample_iter, loss_atol, grid_atol):
     return rt
 
 
-def test_two_iterations_match_jax():
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(base, f), root) for base, _, fs in os.walk(root) for f in fs)
+
+
+def _check_outputs_match(jdir, tdir):
+    """The same files under both output directories (the progress images by
+    name and size: their contents are held by the slow
+    test_progress_images_match_jax), the losses of ``metadata.json`` within
+    1e-4."""
+    names = _files(tdir)
+    assert names == _files(jdir)
+    want = {"metadata.json", "loss.png", "loss.pdf", "params/sdf-data-0000.vol", "params/sdf-data-0001.vol",
+            "params/sdf-final.vol", *(f"opt/opt-{i:04d}-{v:02d}.png" for i in range(2) for v in range(2))}
+    assert set(names) == want, names
+    for name in names:
+        if name.startswith("opt/"):
+            got, ref = (read_png(os.path.join(d, name)) for d in (tdir, jdir))
+            assert got.shape == ref.shape == (16, 16, 3) and got.max() > 0, name
+    (mt, mj) = (json.load(open(os.path.join(d, "metadata.json"))) for d in (tdir, jdir))
+    np.testing.assert_allclose(mt["loss_values"], mj["loss_values"], rtol=0, atol=1e-4)
+
+
+def _blank_render(scene, view_idx=None, seed=0, cfg=None, mode="primal", camera=None):
+    """A stand-in for the JAX package's progress-image render: a black image
+    of the film's size, for the file names alone (the JAX package renders
+    op by op, ~20 s here)."""
+    return jnp.zeros((camera.resy, camera.resx, 4), jnp.float32)
+
+
+def _check_resume_matches(tmp_path, jdir, tdir, rt, monkeypatch):
+    """``resume_from=1`` of the finished 2-iteration run, with the run's
+    ``metadata.json``, without it and with a corrupt one: no iteration left,
+    so each package returns the stitched history: the first 2 losses of the
+    file, else NaNs; its wall time adds to the file's.  No iteration reads
+    the target or its references, so neither package builds them here."""
+    for mod, data in ((jshape_opt, jnp.zeros((16, 16, 16))), (tshape_opt, torch.zeros(16, 16, 16))):
+        monkeypatch.setattr(mod, "render_reference_images", lambda *a, **k: {})
+        monkeypatch.setattr(mod, "target_sdf", lambda *a, _data=data, **k: _data)
+    for case in ("present", "absent", "corrupt"):
+        dirs = [str(tmp_path / case / name) for name in ("jax", "port")]
+        prior = []
+        for src, dst in zip((jdir, tdir), dirs):
+            shutil.copytree(src, dst)
+            meta = os.path.join(dst, "metadata.json")
+            prior.append(json.load(open(meta))["total_time"])
+            if case == "absent":
+                os.remove(meta)
+            elif case == "corrupt":
+                open(meta, "w").write("{ not json")
+        results = [_run(optimize, configs, opt_configs, 2, (), output_dir=d, resume_from=1, **kw)
+                   for (optimize, configs, opt_configs, kw), d in zip(
+                       ((joptimize_shape, jconfigs, jopt_configs, {}),
+                        (optimize_shape, tconfigs, topt_configs, {"device": "cpu"})), dirs)]
+        (lj, lt) = (np.asarray(r.loss_values, np.float64) for r in results)
+        assert lt.shape == lj.shape == (2,), case
+        if case == "present":
+            np.testing.assert_array_equal(lt, np.asarray(rt.loss_values))
+            np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-4)
+        else:
+            assert np.isnan(lt).all() and np.isnan(lj).all(), case
+        for d, r, before in zip(dirs, results, prior):
+            meta = json.load(open(os.path.join(d, "metadata.json")))
+            assert meta["total_time"] == pytest.approx(r.total_time)
+            assert (r.total_time > before) == (case == "present"), case
+        assert torch.equal(results[1].params["sdf"], rt.params["sdf"])
+
+
+def test_two_iterations_match_jax(tmp_path, monkeypatch):
     # loss 1e-4: a mean over 768 values that each agree to ~2e-5 (measured
     # 1e-5).  Grids 3e-4: the grid gradient carries ~1e-3 relative differences
     # (tracer cancellation), which Adam's normalised step g/(|g|+1e-8)·lr
     # turns into ~2e-5 per iteration on voxels whose gradient is of the order
     # of its epsilon; redistancing then carries an interface voxel's offset
     # outward (measured: 1.2e-4 on 1 voxel of 4096, 6e-5 elsewhere; EMA 6e-6)
-    rt = _compare(2, (), loss_atol=1e-4, grid_atol=3e-4)
+    out_dirs = (str(tmp_path / "jax"), str(tmp_path / "port"))
+    monkeypatch.setattr(jshape_opt, "render", _blank_render)
+    rt = _compare(2, (), loss_atol=1e-4, grid_atol=3e-4, out_dirs=out_dirs)
     assert tuple(rt.params["sdf"].shape) == (16, 16, 16)
     assert rt.ema["sdf"] is not rt.params["sdf"] and len(rt.iter_seconds) == 2
+    _check_outputs_match(*out_dirs)
+    _check_resume_matches(tmp_path, *out_dirs, rt, monkeypatch)
+
+
+@pytest.mark.slow
+def test_progress_images_match_jax(tmp_path, monkeypatch):
+    """The progress images of both packages' tiny run, within 1 of 255
+    (images of grids 3e-4 apart, tonemapped); the JAX package's render
+    compiled at backend level 0, which rounds as it runs op by op."""
+    monkeypatch.setattr(jshape_opt, "render", jax.jit(jshape_opt.render, static_argnames=("view_idx", "cfg", "mode"),
+                                                      **JIT_LEVEL0))
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    _compare(2, (), loss_atol=1e-4, grid_atol=3e-4, out_dirs=(jdir, tdir))
+    names = [n for n in _files(tdir) if n.startswith("opt/")]
+    assert len(names) == 4 and names == [n for n in _files(jdir) if n.startswith("opt/")]
+    for name in names:
+        got, ref = (read_png(os.path.join(d, name)).astype(int) for d in (tdir, jdir))
+        assert np.abs(got - ref).max() <= 1, name
 
 
 def test_configs_equal_jax():
@@ -86,10 +187,10 @@ def test_configs_equal_jax():
 
 
 def test_unported_options_raise():
+    # the method 'fd' no longer raises: it trains as the JAX package trains
+    # it (tests/test_torch_opt_tools.py)
     method = tconfigs.get_config("warp")
     cfg = topt_configs.SdfConfig(upsample_iter=(), **TINY)
-    with pytest.raises(NotImplementedError):
-        optimize_shape(SCENE, cfg, tconfigs.get_config("fd"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no card and no device="cpu": raises, no fallback
             optimize_shape(SCENE, cfg, method, n_iter=1)
